@@ -1,8 +1,8 @@
-"""pathtrace_tpu — a TPU-native differentiable path tracer.
+"""pathtrace_tpu — a differentiable path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the
-CUDA renderer WaterPlease/PathTrace-on-CUDA (reference mounted read-only at
-/root/reference), redesigned TPU-first:
+CUDA renderer WaterPlease/PathTrace-on-CUDA, restructured as batched
+array programs:
 
 - SoA scene representation (flat device arrays, not pointer trees)
 - SAH BVH built on host, flattened arrays as the source of truth

@@ -1,46 +1,31 @@
-"""Two-level binned traversal: the TPU-native BVH walk for large scenes.
+"""Two-level binned traversal: the BVH walk for large scenes.
 
 The reference walks its BVH with a per-thread stack (CudaUtil.cuh:93-148).
-Per-lane stack walks are hostile to a vector machine (every step is a
-divergent gather), so for large scenes we restructure traversal into
-dense batched work:
+Here traversal is restructured into dense batched work:
 
-1. Build: cut the SAH BVH into "clusters" - subtrees holding <= C
-   triangles (pre-order flattening already makes each subtree's
-   primitives contiguous). Per cluster: AABB + a (16, C) block of
-   MT-matmul coefficients (ops/mt_matmul.py).
+1. Build: cut the scene into "clusters" of <= C triangles. Per cluster:
+   an AABB and a (4, 16, C) block of MT-matmul coefficients
+   (ops/mt_matmul.py), one (16, C) tile per MT quantity.
 2. Query, stage 1 (cull): test every ray against every cluster AABB -
-   one dense (R, M) slab test, no gathers.
-3. Query, stage 2 (dispatch): take each ray's K nearest hit clusters,
-   form (ray, cluster) pairs, counting-sort them by cluster, pad each
-   cluster's run to the pair-block size B, and process pair-blocks with
-   batched (B,16)x(16,C) MXU matmuls - each block reads ONE cluster's
-   coefficient tile. This is exactly the counting-sort compaction /
-   "expert dispatch" structure the north star prescribes.
+   one dense (R, M) slab test.
+3. Query, stage 2 (dispatch): form (ray, cluster) pairs, group them by
+   cluster, pad each cluster's run to the pair-block size B, and search
+   each pair-block against ONE cluster's coefficient tiles.
 4. Reduce: scatter-min the per-pair closest hits back to rays.
 
-Work drops from O(R*T) (brute) to O(R*M + P*C) with P ~ R * avg clusters
-per ray. All shapes static; the only approximation is the per-ray cap of
-K clusters (k_max): rays intersecting more than K cluster AABBs fall back
-to brute force against the full scene for correctness (mask-mixed in, no
-recompilation; the cap violation rate is ~0 for reasonable K and is
-asserted in tests).
+Work drops from O(R*T) (brute) to O(R*M + P*C) with P ~ R * clusters
+per ray.
 
-Three generations live here:
+Two generations live here:
 
 - v1 (raycast_binned / raycast_binned_closest): XLA-only, BVH-subtree
-  clusters, sorted-key dispatch + einsum group loop. Kept as a tested
-  reference backend, and the routed backend for with_binned() scenes
-  (BVH-subtree clusters overlap too much for the pair dispatch).
-- v2 (raycast_binned_v2 / shadow_binned_v2): the round-4 Pallas
-  pair-block kernel path - sort-free (R, K) peel dispatch + dense
-  gather-back reduce + k_max overflow repair. Kept as the tested
-  stepping stone; see build_pair_dispatch's docstring.
-- v3 (raycast_binned_v3 / shadow_binned_v3, the PRODUCTION mesh path):
-  peel-free, scatter-free dispatch (arithmetic slot inversion over
-  per-panel popcount prefixes), no k_max at all, ONE packed scatter-min
-  reduce, and a one-gather shading tail. 229.5k -> 1.02M paths/s on
-  blob82k across rounds 4 -> 5; see build_pair_dispatch_v3.
+  clusters, sorted-key dispatch + einsum group loop, with a per-ray cap
+  of k_max clusters (rays over it fall back to brute force). The routed
+  backend for with_binned() scenes.
+- v3 (raycast_binned_v3 / shadow_binned_v3, the production mesh path):
+  KD cells (accel/kdgrid.py), a scatter-free dispatch (arithmetic slot
+  inversion over per-panel popcount prefixes), no k_max, the pair-block
+  search of ops/pallas/pair_kernel.py and ONE packed scatter-min reduce.
 """
 
 from __future__ import annotations
@@ -62,7 +47,7 @@ class ClusterArrays:
     bmax: jnp.ndarray        # (M, 3)
     prim_start: jnp.ndarray  # (M,) into the (reordered) triangle arrays
     prim_count: jnp.ndarray  # (M,)
-    coeffs: jnp.ndarray      # (M, 16, C, 4): det, t_num, u_num, v_num
+    coeffs: jnp.ndarray      # (M, 4, 16, C): det, t_num, u_num, v_num
     num_clusters: int
     cluster_cap: int         # C
     # KD cells only (accel/kdgrid.py): member slot -> ORIGINAL tri id.
@@ -128,13 +113,7 @@ def build_clusters(bvh: BVHArrays, positions_reordered: np.ndarray,
     # coefficient tiles: fit once over all tris, slice per cluster, pad.
     # padding slots keep zero det coeffs -> det = 0 < EPS -> culled.
     full = build_mt_coeffs(positions_reordered, pad_to=1)
-    stacked = np.stack([np.asarray(full.det), np.asarray(full.t_num),
-                        np.asarray(full.u_num), np.asarray(full.v_num)],
-                       axis=-1)  # (16, T, 4)
-    tiles = np.zeros((m, 16, c, 4), np.float32)
-    for k in range(m):
-        s, cnt = int(cl_start[k]), int(cl_count[k])
-        tiles[k, :, :cnt, :] = stacked[:, s:s + cnt, :]
+    tiles = coefficient_tiles(full, cl_start, cl_count, c)
 
     return ClusterArrays(
         bmin=cl_bmin, bmax=cl_bmax,
@@ -143,6 +122,17 @@ def build_clusters(bvh: BVHArrays, positions_reordered: np.ndarray,
         coeffs=tiles,
         num_clusters=m, cluster_cap=c,
     )
+
+
+def coefficient_tiles(full, starts, counts, c: int) -> np.ndarray:
+    """(M, 4, 16, C) per-cluster tiles sliced from all-triangle MTCoeffs.
+    Padding slots keep zero det coefficients -> det = 0 < EPS -> culled."""
+    stacked = np.stack([np.asarray(full.det), np.asarray(full.t_num),
+                        np.asarray(full.u_num), np.asarray(full.v_num)])
+    tiles = np.zeros((len(starts), 4, 16, c), np.float32)
+    for k, (s, n) in enumerate(zip(starts, counts)):
+        tiles[k, :, :, :n] = stacked[:, :, s:s + n]
+    return tiles
 
 
 def _slab_all(org, inv_d, bmin, bmax, t_min, t_max):
@@ -183,11 +173,7 @@ def raycast_binned_closest(clusters: ClusterArrays, org, dirn, t_min, t_max,
     neg_top, top_idx = jax.lax.top_k(-tnear_masked, k_max)   # (R, K)
     pair_valid = jnp.isfinite(-neg_top)
 
-    # Pairs sorted by cluster id, SCATTER-FREE (profiling on blob82k
-    # showed the original scatter-built dispatch - counts .at[].add over
-    # R*K pairs, per-pair cumsum gathers, argsort + permutation gathers -
-    # cost 25.7 ms of a 43 ms raycast at 16k rays; TPU serializes
-    # small-element scatters/gathers while dense sorts/scans are fast):
+    # Pairs sorted by cluster id without argsort or permutation gathers:
     # 1. pack (cluster, ray) into ONE uint32 key and jnp.sort it - no
     #    argsort, no permutation gathers (invalid pairs get id m, last);
     # 2. run boundaries via searchsorted with m+1 queries (not R*K);
@@ -232,9 +218,8 @@ def raycast_binned_closest(clusters: ClusterArrays, org, dirn, t_min, t_max,
     block_cluster = jnp.minimum(block_cluster, m)  # trailing padding
 
     # gather features + coefficient tiles per block, batched matmuls
-    # scanned over groups of blocks: the full (NB, B, C, 4) product is
-    # ~1.3 GB at 65k rays (the runtime spike that crashed the TPU worker
-    # on the 82k-tri scene); groups bound it to ~150 MB.
+    # looped over groups of blocks: the full (NB, 4, B, C) product is
+    # ~1.3 GB at 65k rays; groups bound it to ~150 MB.
     f = ray_features(org, dirn)                      # (R, 16)
     group = 512
     ng = (nb + group - 1) // group
@@ -253,17 +238,13 @@ def raycast_binned_closest(clusters: ClusterArrays, org, dirn, t_min, t_max,
         safe_ray = jnp.maximum(sl_ray, 0)
         f_pairs = f[safe_ray]                        # (G, B, 16)
         safe_cluster = jnp.minimum(bc, m - 1)
-        tiles = coeffs_all[safe_cluster]             # (G, 16, C, 4)
-        # HIGHEST: default TPU matmul truncates f32 inputs to bf16, which
-        # breaks the accept tests' t-ordering (same class of bug as the
-        # bounce kernel's bf16 hi/lo split rationale, bounce_kernel.py)
-        prods = jnp.einsum("nbf,nfcq->nbcq", f_pairs, tiles,
+        tiles = coeffs_all[safe_cluster]             # (G, 4, 16, C)
+        # HIGHEST: IEEE f32 products. The default would run TF32 on the
+        # GPU, which breaks the accept tests' t-ordering.
+        prods = jnp.einsum("nbf,nqfc->qnbc", f_pairs, tiles,
                            preferred_element_type=jnp.float32,
                            precision=jax.lax.Precision.HIGHEST)
-        det = prods[..., 0]
-        t_num = prods[..., 1]
-        u_num = prods[..., 2]
-        v_num = prods[..., 3]
+        det, t_num, u_num, v_num = prods
 
         inv_det = jnp.where(jnp.abs(det) > math3.TINY, 1.0 / det, 0.0)
         t = t_num * inv_det
@@ -290,8 +271,8 @@ def raycast_binned_closest(clusters: ClusterArrays, org, dirn, t_min, t_max,
 
     # only blocks belonging to REAL clusters (< m) need processing: the
     # invalid-pair run (cluster id m: top_k slots beyond a ray's actual
-    # AABB hits) sorts last, so the loop bound is dynamic - the MXU work
-    # tracks the number of VALID pairs (~R * avg clusters per ray), not
+    # AABB hits) sorts last, so the loop bound is dynamic - the product
+    # work tracks the number of VALID pairs (~R * avg clusters per ray), not
     # the static R * k_max pair capacity.
     nb_real = cum_pad_blocks[m - 1]
     ng_real = (nb_real + group - 1) // group
@@ -338,219 +319,8 @@ def raycast_binned_closest(clusters: ClusterArrays, org, dirn, t_min, t_max,
 
 
 # ---------------------------------------------------------------------------
-# v2: Pallas pair-block dispatch (round 4)
+# v3: arithmetic slot inversion + packed scatter-min reduce
 # ---------------------------------------------------------------------------
-
-def build_pair_dispatch(clusters: ClusterArrays, hit_m, tnear, k_max: int,
-                        block_pairs: int, cap_budget: int = None):
-    """Hit mask -> cluster-grouped pair dispatch for the Pallas kernel.
-
-    Returns a dict:
-      slot_ray    (cap,) i32   ray id per pair slot, -1 = dead slot
-      slot_of     (R, K) i32   inverse map: pair (r, k)'s slot, cap = dead
-      pair_valid  (R, K) bool  pair exists and was not capacity-dropped
-      block_cluster (nb,) i32  cluster per block, clamped to [0, M)
-      block_prim_start (nb,) i32  cluster's prim base, -1 = padding block
-      overflow    (R,) bool    ray needs the repair pass (k_max exceeded
-                               or pair slots beyond cap_budget dropped)
-
-    SORT-FREE, LOOKUP-FREE construction. Per-op tracing
-    (tools/tpu_profile_mesh.py) showed every p-sized routed op - the
-    packed-key sort, small-table gathers like offsets[pair_cluster], and
-    clustered-index scatters - costs 2-9 ms at p = R*K on this TPU, and
-    the dispatch glue dwarfed the actual search kernel (0.8 ms). This
-    construction touches only DENSE (R, M) math plus ONE well-mixed
-    scatter:
-
-      1. colrank[r, m] = # of hit rays r' <= r in column m, by
-         block-lower-triangular bf16 matmul (block-local counts <= 128
-         are bf16-exact) + an f32 inter-block carry;
-      2. every pair's slot is then ARITHMETIC: slot[r, m] = offsets[m] +
-         colrank[r, m] - 1, offsets from the padded per-cluster counts
-         (dense (M,) cumsum, broadcast - no gather);
-      3. a K-pass peel extracts each ray's hit clusters AND their slots
-         in ONE masked min-reduce per pass via a packed key
-         (col << 20 | slot, slot < 2^20 asserted);
-      4. slot_ray is ONE scatter whose flattened (r, k) index order
-         jumps between cluster runs - the well-mixed case (ascending
-         scatters serialize ~100x on TPU; see the probe history).
-    """
-    r, m = hit_m.shape
-    k_max = min(k_max, m)
-    b = block_pairs
-    if cap_budget is None:
-        cap_budget = 6 * r + m * b
-    cap = (cap_budget // b) * b
-    assert cap < (1 << 20), cap  # slot must fit the packed peel key
-
-    num_hit = jnp.sum(hit_m, axis=1)
-    overflow = num_hit > k_max
-
-    # --- colrank via block-triangular matmul
-    rb = 128
-    r_pad = -(-r // rb) * rb
-    h = hit_m
-    if r_pad != r:
-        h = jnp.pad(hit_m, ((0, r_pad - r), (0, 0)))
-    nbl = r_pad // rb
-    hb = h.reshape(nbl, rb, m).astype(jnp.bfloat16)
-    ltri = jnp.asarray(np.tril(np.ones((rb, rb), np.float32)),
-                       jnp.bfloat16)
-    local = jax.lax.dot_general(
-        ltri, hb, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32)          # (rb, nbl, m)
-    local = local.transpose(1, 0, 2)                 # (nbl, rb, m)
-    btot = local[:, -1, :]                           # (nbl, m)
-    base = jnp.cumsum(btot, axis=0) - btot           # exclusive
-    colrank = (local + base[:, None, :]).reshape(r_pad, m)[:r]
-    colrank = colrank.astype(jnp.int32)              # inclusive rank
-
-    counts = jnp.sum(hit_m, axis=0)                  # (m,)
-    padded = ((counts + b - 1) // b) * b
-    offsets = jnp.concatenate([jnp.zeros((1,), jnp.int32),
-                               jnp.cumsum(padded)[:-1]])  # (m,)
-
-    # --- packed peel: (cluster, slot) per pass in one reduce.
-    # The peel key packs the cluster id into bits 20+ of an int32, so
-    # the sentinel (m << 20) must stay inside int32 (ADVICE r4 #3).
-    assert m < 2048, f"v2 packed peel limited to <2048 clusters, got {m}"
-    slot_dense = offsets[None, :] + colrank - 1      # (R, M)
-    cols = jax.lax.broadcasted_iota(jnp.int32, hit_m.shape, 1)
-    pack = (cols << 20) | jnp.minimum(slot_dense, (1 << 20) - 1)
-    sentinel = (m << 20)
-    live = hit_m
-    top_c, top_s = [], []
-    for _ in range(k_max):
-        got = jnp.min(jnp.where(live, pack, sentinel), axis=1)
-        c = got >> 20
-        top_c.append(c)
-        top_s.append(got & ((1 << 20) - 1))
-        live = live & (cols != c[:, None])
-    top_idx = jnp.stack(top_c, axis=1)               # (R, K)
-    slot_of = jnp.stack(top_s, axis=1)               # (R, K)
-    pair_valid = top_idx < m
-    dropped = pair_valid & (slot_of >= cap)
-    overflow = overflow | jnp.any(dropped, axis=1)
-    pair_valid = pair_valid & ~dropped
-    slot_of = jnp.where(pair_valid, slot_of, cap)
-
-    # --- slot_ray: one well-mixed scatter
-    ray_ids = jax.lax.broadcasted_iota(jnp.int32, (r, k_max), 0)
-    slot_ray = jnp.full((cap,), -1, jnp.int32).at[
-        slot_of.reshape(-1)].set(ray_ids.reshape(-1), mode="drop",
-                                 unique_indices=True)
-
-    nb = cap // b
-    block_ids = jnp.arange(nb, dtype=jnp.int32)
-    cum_pad_blocks = jnp.cumsum(padded // b)         # (m,)
-    block_cluster = jnp.searchsorted(cum_pad_blocks, block_ids,
-                                     side="right").astype(jnp.int32)
-    is_pad_block = block_cluster >= m
-    block_cluster = jnp.minimum(block_cluster, m - 1)
-    ps = jnp.asarray(clusters.prim_start)
-    block_prim_start = jnp.where(is_pad_block, -1, ps[block_cluster])
-    return dict(slot_ray=slot_ray, slot_of=slot_of, pair_valid=pair_valid,
-                block_cluster=block_cluster,
-                block_prim_start=block_prim_start, overflow=overflow)
-
-
-def raycast_binned_pallas(scene, org, dirn, t_min=0.0, t_max=None, *,
-                          k_max: int = 16, mode: str = "closest",
-                          exclude_gid=None, interpret=None,
-                          cap_budget=None):
-    """Closest-hit via the Pallas pair-block kernel (scene.pair_pack).
-
-    Returns (hit, t, gid, u, v, overflow) per ray - detached primal.
-    t_min/t_max may be python scalars (preferred: the meta rows become
-    broadcast constants instead of per-pair gathers) or (R,) arrays.
-    mode="shadow" skips the in-kernel exact recompute; `exclude_gid`
-    (R,) i32 masks one tri per ray IN MEMBER-SLOT SPACE (prim_start +
-    local, i.e. DUPLICATED space for KD scenes - an original id would
-    silently match nothing; ADVICE r4 #4). No production caller passes
-    it (NEE identity-tests the winner instead); kept for experiments.
-    """
-    from pathtrace_tpu.accel.traverse import safe_inv_dir
-    from pathtrace_tpu.ops.intersect import BIG_T
-    from pathtrace_tpu.ops.mt_matmul import ray_features
-    from pathtrace_tpu.ops.pallas.pair_kernel import pair_blocks_search
-
-    clusters = scene.clusters
-    pack = scene.pair_pack
-    assert pack is not None, "scene has no pair_pack; Scene.with_binned()"
-    if interpret is None:
-        # Mosaic compiles only for TPU; CPU (tests, goldens) runs the
-        # kernel in interpret mode - same semantics, slow but exact
-        interpret = jax.default_backend() != "tpu"
-    if t_max is None:
-        t_max = BIG_T
-    r = org.shape[0]
-    c_cap = pack.cluster_cap
-    b = min(c_cap, 128)
-
-    tmin_arr = (jnp.full((r,), float(t_min), jnp.float32)
-                if jnp.ndim(t_min) == 0 else t_min)
-    tmax_arr = (jnp.full((r,), float(t_max), jnp.float32)
-                if jnp.ndim(t_max) == 0 else t_max)
-    inv_d = safe_inv_dir(dirn)
-    hit_m, tnear = _slab_all(org, inv_d, clusters.bmin, clusters.bmax,
-                             tmin_arr, tmax_arr)
-    disp = build_pair_dispatch(clusters, hit_m, tnear, k_max, b,
-                               cap_budget=cap_budget)
-    slot_ray = disp["slot_ray"]
-    cap = slot_ray.shape[0]
-
-    safe_ray = jnp.maximum(slot_ray, 0)
-    feats = ray_features(org, dirn)                      # (R, 16)
-    feats_t = feats[safe_ray].T                          # (16, cap)
-    rows = [slot_ray.astype(jnp.float32)]
-    for bound in (t_min, t_max):
-        rows.append(jnp.full((cap,), float(bound), jnp.float32)
-                    if jnp.ndim(bound) == 0 else bound[safe_ray])
-    rows.append(jnp.full((cap,), -1.0, jnp.float32) if exclude_gid is None
-                else exclude_gid.astype(jnp.float32)[safe_ray])
-    meta = jnp.stack(rows + [jnp.zeros((cap,), jnp.float32)] * 4, axis=0)
-
-    out = pair_blocks_search(pack, disp["block_cluster"],
-                             disp["block_prim_start"],
-                             feats_t, meta, c_cap=c_cap, block_pairs=b,
-                             mode=mode, interpret=interpret)
-
-    # dense (R, K) gather-back reduce: no scatter-min chains
-    # gather-back only the 4 rows the reduce consumes (t, u+v packed is
-    # not worth it, but halving the row width halves the dominant
-    # (R, K, rows) gather's traffic: kernel rows 0 t, 1 u, 2 v, 3 hit,
-    # 4 gid -> u/v are recomputed differentiably by the caller's
-    # mt_gather tail, so fetch [t, hit, gid, pad])
-    out_t = out[jnp.array([0, 3, 4, 5])].T               # (cap, 4) rows
-    out_t = jnp.concatenate([out_t, jnp.zeros((1, 4), jnp.float32)], axis=0)
-    slot_of = jnp.where(disp["pair_valid"], disp["slot_of"], cap)
-    res = out_t[slot_of]                                 # (R, K, 4)
-    pv = disp["pair_valid"] & (res[..., 1] > 0.5)
-    t_rk = jnp.where(pv, res[..., 0], jnp.inf)
-    best_k = jnp.argmin(t_rk, axis=1)                    # (R,)
-    best_t = jnp.take_along_axis(t_rk, best_k[:, None], axis=1)[:, 0]
-    hit = jnp.isfinite(best_t)
-
-    gid = jnp.take_along_axis(res[..., 2], best_k[:, None],
-                              axis=1)[:, 0].astype(jnp.int32)
-    # (the kernel emits original tri ids - pack attr row 9 - so no dup
-    # translation is needed here)
-    # u/v placeholders: every consumer (raycast_binned_v2 / shadow) either
-    # recomputes them differentiably at gid (mt_gather) or ignores them
-    zeros = jnp.zeros_like(best_t)
-    return (hit, jnp.where(hit, best_t, 0.0), gid, zeros, zeros,
-            disp["overflow"])
-
-
-# ---------------------------------------------------------------------------
-# v3: arithmetic slot inversion + packed scatter-min reduce (round 5)
-# ---------------------------------------------------------------------------
-#
-# v2's remaining wall was pure index traffic (TPU charges ~5 ns per
-# randomly-indexed element, measured via trace): the (R, K) packed peel
-# (~3.5 ms), the 1M-element slot_ray scatter (~4.8 ms), the (R, K, 4)
-# gather-back reduce (~4.6 ms) and the k_max overflow repair (~3 ms) per
-# raycast at 65k lanes. v3 removes ALL of them:
 #
 #   1. slot_ray is computed ARITHMETICALLY, not scattered: slot s in
 #      cluster c's run at rank j names the (j+1)-th ray hitting c, i.e.
@@ -558,27 +328,23 @@ def raycast_binned_pallas(scene, org, dirn, t_min=0.0, t_max=None, *,
 #      matrix bit-packed per column into 512-row panels (16 u32 words)
 #      and per-(panel, column) popcount prefix sums, the rank->ray map is
 #      a panel search (dense compare-reduce), ONE (cap, 16) word-row
-#      gather, and a 5-step in-word popcount binary search - all dense
-#      vector math at slot granularity.
-#   2. there is NO k_max: every (ray, cell) crossing gets a slot, so the
-#      per-ray overflow class (and its repair pass) is gone. The only
-#      residual overflow is the static global slot budget (cap_budget);
+#      gather, and a 5-step in-word popcount binary search.
+#   2. there is NO k_max: every (ray, cell) crossing gets a slot. The
+#      only overflow is the static global slot budget (the cap);
 #      exceeded runs mark exactly the affected rays (those crossing a
 #      truncated cluster) for the capacity-bounded repair.
 #   3. the per-ray reduce is ONE scatter-min of a packed 32-bit key
-#      [quantized t | dup-space tri id] over the slot axis - no slot_of
-#      inverse map, no (R, K) gather-back, no argmin glue. t is
+#      [quantized t | original tri id] over the slot axis. t is
 #      quantized to a rebased-exponent log code (monotone for
 #      t in [2^-10, 2^22]); the winner's exact t/u/v are recomputed
 #      differentiably by the caller's mt_gather tail, so quantization
 #      only influences WHICH of two triangles within ~2^-mant relative t
-#      wins - ambiguous geometry at that separation. The dup-tri budget
-#      fixes the split: gid_bits = ceil(log2(D)), t gets 32 - gid_bits
+#      wins - ambiguous geometry at that separation. The tri budget
+#      fixes the split: gid_bits = ceil(log2(T)), t gets 32 - gid_bits
 #      (blob82k: 17 gid bits -> 5 exp + 10 mantissa, 1e-3 relative).
 #
 # Reference parity: same closest-hit contract as RayCast
-# (CudaUtil.cuh:93-148); the arithmetic inversion has no reference
-# analog (it exists to keep a vector machine free of index traffic).
+# (CudaUtil.cuh:93-148); the dispatch itself has no reference analog.
 
 _PANEL = 512           # rays per popcount panel (16 u32 words)
 _T_EXP_BASE = 117      # biased exponent of 2^-10; t below collapses
@@ -592,8 +358,7 @@ def _key_bits(num_dup: int):
     return gid_bits, mant_bits
 
 
-def build_pair_dispatch_v3(clusters: ClusterArrays, hit_m, block_pairs: int,
-                           cap_budget: int = None):
+def build_pair_dispatch_v3(clusters: ClusterArrays, hit_m, block_pairs: int):
     """Hit mask -> cluster-grouped pair dispatch, scatter- and peel-free.
 
     Returns a dict:
@@ -602,20 +367,18 @@ def build_pair_dispatch_v3(clusters: ClusterArrays, hit_m, block_pairs: int,
       live        (cap,) bool  slot holds a real (ray, cluster) pair
       block_cluster (nb,) i32  cluster per block, clamped to [0, M)
       block_prim_start (nb,) i32  cluster's prim base, -1 = padding block
+      block_count (nb,) i32    cluster's member count, 0 = padding block
       overflow    (R,) bool    ray crossed a cluster whose run was
-                               truncated by cap_budget (repair needed)
+                               truncated by the slot cap (repair needed)
     """
     r0, m = hit_m.shape
     b = block_pairs
-    if cap_budget is None:
-        # Measured on the blob82k production mix (camera / bounce / NEE
-        # shadow batches at 65k lanes): real padded totals are 151-179k
-        # slots (mean membership ~2.0-2.4, max 2.73R), so 3R+M*b gives a ~1.15x margin
-        # while halving every cap-sized op vs the 6.7R worst-case budget
-        # (the scatter-min reduce alone was 38% of the bounce at 6.7R).
-        # Batches that overflow the budget mark exactly the affected rays
-        # for the capacity-bounded repair - correct at any budget.
-        cap_budget = (11 * r0) // 4 + m * b
+    # Counted on the blob82k mix (camera / bounce / NEE shadow batches at
+    # 65k lanes): mean cell membership ~2.0-2.4 per ray, max 2.73R, so
+    # 2.75R + M*b covers every batch seen. Batches that overflow the
+    # budget mark exactly the affected rays for the capacity-bounded
+    # repair - correct at any budget.
+    cap_budget = (11 * r0) // 4 + m * b
     cap = (cap_budget // b) * b
     r = -(-r0 // _PANEL) * _PANEL
     if r != r0:
@@ -648,6 +411,8 @@ def build_pair_dispatch_v3(clusters: ClusterArrays, hit_m, block_pairs: int,
     block_cluster = jnp.minimum(block_cluster, m - 1)
     ps = jnp.asarray(clusters.prim_start)
     block_prim_start = jnp.where(is_pad_block, -1, ps[block_cluster])
+    block_count = jnp.where(is_pad_block, 0,
+                            jnp.asarray(clusters.prim_count)[block_cluster])
 
     # per-slot rank within its cluster's run (all (nb,)-table gathers:
     # thousands of elements, negligible; per-slot math is dense)
@@ -697,97 +462,74 @@ def build_pair_dispatch_v3(clusters: ClusterArrays, hit_m, block_pairs: int,
     overflow = jnp.any(hit_m[:r0] & bad_col[None, :], axis=1)
     return dict(slot_ray=slot_ray, live=live.reshape(-1),
                 block_cluster=block_cluster,
-                block_prim_start=block_prim_start, overflow=overflow)
+                block_prim_start=block_prim_start, block_count=block_count,
+                overflow=overflow)
 
 
-def raycast_binned_pallas_v3(scene, org, dirn, t_min=0.0, t_max=None, *,
-                             mode: str = "closest", interpret=None,
-                             cap_budget=None):
-    """Closest-hit via the pair kernel + v3 dispatch + packed scatter-min.
+BLOCK_PAIRS = 64   # pairs per block: a power of two for the kernel
+
+
+def pair_inputs_v3(clusters: ClusterArrays, org, dirn, t_min, t_max,
+                   block_pairs: int):
+    """Cull + dispatch + per-slot rows: (disp, feats (cap, 16),
+    tmin (cap,), tmax (cap,)) for the pair-block search."""
+    from pathtrace_tpu.accel.traverse import safe_inv_dir
+    from pathtrace_tpu.ops.mt_matmul import ray_features
+
+    assert clusters.dup_map is not None, \
+        "v3 requires KD cells (non-overlapping, dup_map)"
+    hit_m, _ = _slab_all(org, safe_inv_dir(dirn), clusters.bmin,
+                         clusters.bmax, t_min, t_max)
+    disp = build_pair_dispatch_v3(clusters, hit_m, block_pairs)
+    # ONE per-ray row table [feats(16) | tmin | tmax], ONE (cap, 18) row
+    # gather. Dead slots get ZERO rows: zero features make every product
+    # zero, so det >= EPS rejects them with no live mask.
+    table = jnp.concatenate([ray_features(org, dirn), t_min[:, None],
+                             t_max[:, None]], axis=1)
+    g = jnp.where(disp["live"][:, None], table[disp["slot_ray"]], 0.0)
+    return disp, g[:, :16], g[:, 16], g[:, 17]
+
+
+def search_pairs_v3(scene, org, dirn, t_min, t_max):
+    """Closest hit per ray via the v3 dispatch + pair-block search +
+    packed scatter-min.
 
     Returns (hit, t_approx, gid, overflow) per ray - detached primal.
     gid is in ORIGINAL triangle space (dup_map applied). t_approx carries
     the reduce key's quantization (~2^-mant relative); callers recompute
-    exact t at gid (mt_gather). t_min/t_max: scalars or (R,) arrays,
-    honored both in the cell cull and the in-kernel accept tests.
+    exact t at gid (mt_gather). t_min/t_max: (R,) arrays, honored both in
+    the cell cull and the accept tests.
     """
-    from pathtrace_tpu.accel.traverse import safe_inv_dir
-    from pathtrace_tpu.ops.intersect import BIG_T
-    from pathtrace_tpu.ops.mt_matmul import ray_features
-    from pathtrace_tpu.ops.pallas.pair_kernel import pair_blocks_search
+    from pathtrace_tpu.ops.pallas.pair_kernel import pair_search
 
     clusters = scene.clusters
-    pack = scene.pair_pack
-    assert pack is not None, "scene has no pair_pack; Scene.with_kd_binned()"
-    assert clusters.dup_map is not None, \
-        "v3 requires KD cells (non-overlapping, dup_map)"
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if t_max is None:
-        t_max = BIG_T
     r = org.shape[0]
-    c_cap = pack.cluster_cap
-    b = min(c_cap, 128)  # 256-pair blocks measured SLOWER (21.5 vs
-    # 19.4 ms/bounce): the wider tile+pair pipeline loses more to VMEM
-    # double-buffering than it saves in grid steps
-    # the kernel emits ORIGINAL tri ids (pack attr row 9), so duplicate
-    # copies of one triangle carry identical keys and the dup gather is
-    # free; the key budget is set by the original tri count
+    b = BLOCK_PAIRS
     gid_bits, mant_bits = _key_bits(scene.num_tris)
-
-    tmin_arr = (jnp.full((r,), float(t_min), jnp.float32)
-                if jnp.ndim(t_min) == 0 else t_min)
-    tmax_arr = (jnp.full((r,), float(t_max), jnp.float32)
-                if jnp.ndim(t_max) == 0 else t_max)
-    inv_d = safe_inv_dir(dirn)
-    hit_m, _ = _slab_all(org, inv_d, clusters.bmin, clusters.bmax,
-                         tmin_arr, tmax_arr)
-    disp = build_pair_dispatch_v3(clusters, hit_m, b,
-                                  cap_budget=cap_budget)
+    disp, feats, tmin_s, tmax_s = pair_inputs_v3(clusters, org, dirn,
+                                                 t_min, t_max, b)
     slot_ray = disp["slot_ray"]
     live = disp["live"]
-    cap = slot_ray.shape[0]
+    nb = slot_ray.shape[0] // b
+    t_row, member = pair_search(
+        jnp.asarray(clusters.coeffs), disp["block_cluster"],
+        disp["block_count"], feats, tmin_s, tmax_s, block_pairs=b)
+    hit_row = jnp.isfinite(t_row) & live
+    member = (disp["block_prim_start"][:, None]
+              + member.reshape(nb, b)).reshape(-1)
+    gid_row = jnp.asarray(clusters.dup_map)[jnp.clip(member, 0, None)]
 
-    # ONE per-ray row table [feats(16) | tmin | tmax], ONE (cap, 18)
-    # row gather (v2 built meta from separate (cap,)-wide 1-element
-    # gathers - traced at ~3 ms each; 64B+ rows amortize the per-row
-    # cost). Dead slots get ZERO rows: zero features make every product
-    # zero, so the kernel's det >= EPS rejects them with no live mask.
-    feats = ray_features(org, dirn)
-    table = jnp.concatenate([feats, tmin_arr[:, None], tmax_arr[:, None]],
-                            axis=1)
-    g = jnp.where(live[:, None], table[slot_ray], 0.0)   # (cap, 18)
-    feats_t = g[:, :16].T
-    zero = jnp.zeros((cap,), jnp.float32)
-    meta = jnp.stack([g[:, 16], g[:, 17], zero, zero,
-                      zero, zero, zero, zero], axis=0)
-
-    out = pair_blocks_search(pack, disp["block_cluster"],
-                             disp["block_prim_start"],
-                             feats_t, meta, c_cap=c_cap, block_pairs=b,
-                             mode=mode, interpret=interpret, lean=True)
-
-    # packed scatter-min: key = [5-bit rebased exp | mant | dup gid]
-    t_row = out[0]
-    hit_row = out[3] > 0.5
-    gid_row = out[4].astype(jnp.int32)
-    tb = jax.lax.bitcast_convert_type(jnp.maximum(t_row, 0.0), jnp.int32)
+    # packed scatter-min: key = [5-bit rebased exp | mant | original gid].
+    # Duplicate copies of one triangle carry identical keys.
+    tb = jax.lax.bitcast_convert_type(
+        jnp.where(hit_row, t_row, 0.0), jnp.int32)
     e = jnp.clip((tb >> 23) - _T_EXP_BASE, 0, 31)
     mant = (tb >> (23 - mant_bits)) & ((1 << mant_bits) - 1)
     tq = ((e << mant_bits) | mant).astype(jnp.uint32)
     key = (tq << gid_bits) | gid_row.astype(jnp.uint32)
     dead_key = jnp.uint32(0xFFFFFFFF)
-    key = jnp.where(hit_row & live, key, dead_key)
-    # interleave the slot axis before scattering: slot order is ascending
-    # within every cluster run (ranks follow ray id), and near-ascending
-    # scatters serialize on TPU. The min is order-independent, so a dense
-    # (nb, B) transpose relayout mixes consecutive updates across blocks.
-    # Measured: neutral at the fat 6.7R budget (element-bound there) but
-    # +3% end-to-end at the tight 2.75R budget (1.017M vs 0.987M).
-    nb = cap // b
-    key_x = key.reshape(nb, b).T.reshape(-1)
-    ray_x = slot_ray.reshape(nb, b).T.reshape(-1)
-    best = jnp.full((r,), dead_key).at[ray_x].min(key_x)
+    key = jnp.where(hit_row, key, dead_key)
+    best = jnp.full((r,), dead_key).at[slot_ray].min(key)
     hit = best != dead_key
 
     gid = (best & jnp.uint32((1 << gid_bits) - 1)).astype(jnp.int32)
@@ -815,7 +557,7 @@ def raycast_binned_v3(scene, org, dirn, t_min=None, t_max=None):
         t_max = jnp.full((r,), BIG_T, jnp.float32)
     tmin_d = jax.lax.stop_gradient(t_min)
     tmax_d = jax.lax.stop_gradient(t_max)
-    hit, best_t, idx, overflow = raycast_binned_pallas_v3(
+    hit, best_t, idx, overflow = search_pairs_v3(
         scene, org_d, dirn_d, tmin_d, tmax_d)
 
     if scene.mt is not None:
@@ -844,8 +586,8 @@ def shadow_binned_v3(scene, org, dirn, t_min, t_max):
     dirn_d = jax.lax.stop_gradient(dirn)
     tmin_d = jax.lax.stop_gradient(t_min)
     tmax_d = jax.lax.stop_gradient(t_max)
-    hit, tri_t, gid, overflow = raycast_binned_pallas_v3(
-        scene, org_d, dirn_d, tmin_d, tmax_d, mode="shadow")
+    hit, tri_t, gid, overflow = search_pairs_v3(
+        scene, org_d, dirn_d, tmin_d, tmax_d)
 
     if scene.mt is not None:
         res = (hit, tri_t, gid, jnp.zeros_like(tri_t),
@@ -866,17 +608,15 @@ def shadow_binned_v3(scene, org, dirn, t_min, t_max):
 # v3's only overflow class is global slot-budget truncation, which marks
 # every ray of a truncated cluster - potentially thousands at once - so
 # the repair capacity is sized for that burst (the cond fires only on
-# overflow batches; the v2 k_max-overflow class that fired it every call
-# is gone).
+# overflow batches).
 REPAIR_CAP = 4096
 
 
 def _overflow_repair(scene, res, overflow, org_d, dirn_d, tmin_d, tmax_d):
     """Re-resolve overflow rays exactly, capacity-bounded.
 
-    The v1 path re-ran the FULL-scene chunked MT product for the whole
-    batch whenever ANY lane overflowed (traced at ~295 ms/call at 65k
-    lanes on blob82k with overflow rate 1e-4). Here: gather up to
+    Rather than re-running the FULL-scene chunked MT product for the
+    whole batch whenever ANY lane overflows, gather up to
     REPAIR_CAP overflow rays, brute them against the full scene
     (REPAIR_CAP x T products - one chunk), scatter back. The full-batch
     fallback remains only for > REPAIR_CAP overflows (pathological).
@@ -889,10 +629,9 @@ def _overflow_repair(scene, res, overflow, org_d, dirn_d, tmin_d, tmax_d):
     def repair(res):
         idx = jnp.nonzero(overflow, size=REPAIR_CAP, fill_value=0)[0]
         sel = overflow[idx]
-        # wide blocks: at REPAIR_CAP rays the (512, block) products are
-        # tiny, and the default 4096-column scan's ~21 sequential steps
-        # dominated the repair (traced 2.8 ms - it fires on nearly every
-        # 65k batch at overflow rate ~2e-4); 4 steps suffice
+        # wide blocks: at REPAIR_CAP rays the (REPAIR_CAP, block)
+        # products are small, and 4 sequential steps beat the default
+        # 4096-column scan's ~21
         block = min(32768, scene.mt.det.shape[1])
         ho, to, io, uo, vo = mt_matmul_closest_chunked(
             scene.mt, org_d[idx], dirn_d[idx], tmin_d[idx], tmax_d[idx],
@@ -917,70 +656,6 @@ def _overflow_repair(scene, res, overflow, org_d, dirn_d, tmin_d, tmax_d):
     return res
 
 
-def raycast_binned_v2(scene, org, dirn, t_min=None, t_max=None,
-                      k_max: int = 16):
-    """Drop-in raycast (HitRecord) through the Pallas pair-block kernel.
-
-    Bounded overflow repair + the differentiable-recompute tail of
-    raycast_binned. NOTE (ADVICE r4 #2): traversal always runs the
-    [0, BIG_T) band - a caller passing t_min > 0 gets triangle hits
-    below t_min that brute would reject. Every caller passes the
-    defaults; the v3 path (raycast_binned_v3) threads real bounds
-    through both the cell cull and the in-kernel accepts."""
-    from pathtrace_tpu.ops.intersect import BIG_T, finalize_hit, mt_gather
-
-    org_d = jax.lax.stop_gradient(org)
-    dirn_d = jax.lax.stop_gradient(dirn)
-    r = org.shape[0]
-    hit, best_t, idx, u, v, overflow = raycast_binned_pallas(
-        scene, org_d, dirn_d, 0.0, BIG_T, k_max=k_max)
-
-    if scene.mt is not None:
-        zeros = jnp.zeros((r,), jnp.float32)
-        big = jnp.full((r,), BIG_T, jnp.float32)
-        hit, best_t, idx, u, v = _overflow_repair(
-            scene, (hit, best_t, idx, u, v), overflow, org_d, dirn_d,
-            zeros, big)
-
-    if t_min is None:
-        t_min = jnp.zeros((r,), jnp.float32)
-    if t_max is None:
-        t_max = jnp.full((r,), BIG_T, jnp.float32)
-    idx = jnp.minimum(jnp.maximum(idx, 0), scene.num_tris - 1)
-    t2, u2, v2, _ = mt_gather(scene.tris, idx, org, dirn, t_min,
-                              jnp.full_like(t_max, BIG_T))
-    best_t = jnp.where(hit, t2, best_t)
-    u = jnp.where(hit, u2, u)
-    v = jnp.where(hit, v2, v)
-    return finalize_hit(scene, org, dirn, t_min, t_max, hit, best_t, idx, u, v)
-
-
-def shadow_binned_v2(scene, org, dirn, t_min, t_max, k_max: int = 16):
-    """Lean shadow backend: (hit, prim_id, is_sphere) via the pair kernel
-    in shadow mode (no exact recompute / attribute fetch - NEE only
-    identity-tests the winner, see megakernel.nee_contribution)."""
-    org_d = jax.lax.stop_gradient(org)
-    dirn_d = jax.lax.stop_gradient(dirn)
-    tmin_d = jax.lax.stop_gradient(t_min)
-    tmax_d = jax.lax.stop_gradient(t_max)
-    hit, tri_t, gid, _, _, overflow = raycast_binned_pallas(
-        scene, org_d, dirn_d, tmin_d, tmax_d, k_max=k_max, mode="shadow")
-
-    if scene.mt is not None:
-        res = (hit, tri_t, gid, jnp.zeros_like(tri_t), jnp.zeros_like(tri_t))
-        hit, tri_t, gid, _, _ = _overflow_repair(
-            scene, res, overflow, org_d, dirn_d, tmin_d, tmax_d)
-    if scene.num_spheres:
-        from pathtrace_tpu.ops.intersect import (closest_masked,
-                                                 intersect_spheres_all)
-        st, svalid = intersect_spheres_all(scene.spheres, org, dirn,
-                                           t_min, t_max)
-        sp_t, _, sp_hit = closest_masked(jnp.where(svalid, st, jnp.inf))
-        use_sph = sp_hit & (~hit | (sp_t < jnp.where(hit, tri_t, jnp.inf)))
-        return hit | sp_hit, gid, use_sph
-    return hit, gid, jnp.zeros_like(hit)
-
-
 def raycast_binned(scene, org, dirn, t_min=None, t_max=None,
                    k_max: int = 48):
     """Drop-in raycast via binned traversal (scene.clusters required).
@@ -994,7 +669,7 @@ def raycast_binned(scene, org, dirn, t_min=None, t_max=None,
     clusters = scene.clusters
     assert clusters is not None, "scene has no clusters; Scene.with_binned()"
     assert clusters.dup_map is None, \
-        "KD cells require the v2 path (raycast_binned_v2)"
+        "KD cells require the v3 path (raycast_binned_v3)"
     org_d = jax.lax.stop_gradient(org)
     dirn_d = jax.lax.stop_gradient(dirn)
     r = org.shape[0]
@@ -1011,8 +686,8 @@ def raycast_binned(scene, org, dirn, t_min=None, t_max=None,
     if scene.mt is not None:
         # exact fallback for overflow rays, gated behind lax.cond: the
         # full-scene chunked MT product is ~R*T work (5.4G products per
-        # bounce on blob82k at 65k lanes) and used to run UNCONDITIONALLY
-        # every raycast - the reason the mesh bench sat at ~13k paths/s.
+        # bounce on blob82k at 65k lanes), so it must not run
+        # unconditionally every raycast.
         # k_max must make overflow RARE IN EVERY BATCH, not just low-rate:
         # any single overflowing lane fires the whole fallback for the
         # iteration. Measured on blob82k INTERIOR rays (the bounce-ray

@@ -16,7 +16,7 @@ The reference then flattens the pointer tree for the GPU with leaf
 primitives contiguous per leaf (LoadFromBVH, CudaPrimitive.cu:8-145).
 Here flat arrays are the *source of truth*: we emit them directly in
 pre-order DFS, plus threaded skip links (next_hit / next_miss) so
-traversal needs NO per-ray stack - the TPU-native replacement for the
+traversal needs NO per-ray stack - the batched replacement for the
 reference's `int stack[128]` walk (CudaUtil.cuh:99-133).
 
 A C++ builder (native/) accelerates large scenes; this numpy version is

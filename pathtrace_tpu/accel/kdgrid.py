@@ -4,8 +4,8 @@ The BVH-subtree clusters (accel/binned.py build_clusters) inherit the
 SAH tree's spatial OVERLAP: around a dense crinkly surface, dozens of
 subtree AABBs contain the same point, so a bounce/shadow ray starting ON
 the surface is "inside" 20-50 cluster boxes at once - per-ray cluster
-membership explodes, k_max with it, and the overflow fallback dominated
-the mesh bounce (traced at ~295 ms/call: tools/tpu_profile_mesh_bounce).
+membership explodes, k_max with it, and the overflow fallback dominates
+the mesh bounce.
 
 This module replaces the cut with a KD median-split partition of SPACE:
 
@@ -26,23 +26,23 @@ This module replaces the cut with a KD median-split partition of SPACE:
     `dup_map`, applied once per raycast after the winner reduce.
 
 The reference has no analog (its per-thread stack walks the overlapping
-SAH tree directly, CudaUtil.cuh:93-148); this is TPU-shaped geometry:
-bounded fan-out buys dense static dispatch.
+SAH tree directly, CudaUtil.cuh:93-148); bounded fan-out buys a dense
+static dispatch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pathtrace_tpu.accel.binned import ClusterArrays
+from pathtrace_tpu.accel.binned import ClusterArrays, coefficient_tiles
 
 
 def build_kd_clusters(positions: np.ndarray, max_tris: int = 256,
                       pad_bounds: float = 1e-3, rule: str = "midpoint",
                       shrink: bool = True):
-    """(T, 3, 3) world triangles -> ClusterArrays over a duplicated,
-    cell-contiguous member array + dup_map (D,) i32 into the original
-    triangle order.
+    """(T, 3, 3) world triangles -> (ClusterArrays over a duplicated,
+    cell-contiguous member array, dup_map (D,) i32 into the original
+    triangle order).
 
     Splitting: recursive cut along the cell's widest axis until
     <= max_tris members. rule="midpoint" cuts the box center (fat,
@@ -90,11 +90,11 @@ def build_kd_clusters(positions: np.ndarray, max_tris: int = 256,
         if rule == "hybrid" and len(ids) <= 2 * max_tris:
             # final split: cut at the centroid median along the widest
             # axis so both leaves land near max_tris (midpoint leaves
-            # average ~50% fill, and every padded tile row costs MXU and
-            # accept-logic work in the pair kernel). Global structure
+            # average ~50% fill, and every member slot of a cell costs
+            # product and accept work in the pair search). Global structure
             # stays midpoint-fat: an all-median tree degenerates into
             # thin slabs along the dense surface and crossing counts
-            # explode (measured 586k -> 15k paths/s on blob82k).
+            # explode.
             axis = int(np.argmax(bmax - bmin))
             cut = float(np.median(c[:, axis]))
             if not (bmin[axis] < cut < bmax[axis]):
@@ -136,13 +136,7 @@ def build_kd_clusters(positions: np.ndarray, max_tris: int = 256,
     dup_positions = positions[dup_map]
 
     full = build_mt_coeffs(dup_positions, pad_to=1)
-    stacked = np.stack([np.asarray(full.det), np.asarray(full.t_num),
-                        np.asarray(full.u_num), np.asarray(full.v_num)],
-                       axis=-1)  # (16, D, 4)
-    tiles = np.zeros((m, 16, c_cap, 4), np.float32)
-    for k in range(m):
-        s, n = int(starts[k]), int(counts[k])
-        tiles[k, :, :n, :] = stacked[:, s:s + n, :]
+    tiles = coefficient_tiles(full, starts, counts, c_cap)
 
     import jax.numpy as jnp
     clusters = ClusterArrays(
@@ -152,7 +146,7 @@ def build_kd_clusters(positions: np.ndarray, max_tris: int = 256,
         coeffs=jnp.asarray(tiles),
         num_clusters=m, cluster_cap=c_cap,
     )
-    return clusters, dup_map.astype(np.int32), dup_positions
+    return clusters, dup_map.astype(np.int32)
 
 
 def crossing_stats(clusters, org: np.ndarray, dirn: np.ndarray,

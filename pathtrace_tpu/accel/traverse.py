@@ -1,6 +1,6 @@
 """Stackless batched BVH traversal (the #1 hot path).
 
-TPU-native replacement for the reference's per-thread stack walk
+Batched replacement for the reference's per-thread stack walk
 (RayCast, CudaUtil.cuh:93-148: `int stack[128]` in local memory, push/pop,
 AABB-prune against the running closest t). A per-lane stack maps poorly to
 a vector machine, so the builder threads the tree with skip links

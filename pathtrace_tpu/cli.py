@@ -58,15 +58,7 @@ def cmd_render(args) -> int:
     for p in range(start_pass, passes):
         t0 = time.perf_counter()
         pass_key = rng.iter_key(key, 1000 + p)
-        if args.engine == "fused":
-            from pathtrace_tpu.ops.pallas.bounce_kernel import (
-                auto_fused_config, render_wavefront_fused)
-            lanes, block_r = auto_fused_config(w * h)
-            pass_img, _ = render_wavefront_fused(
-                scene, camera, spp_per_pass, pass_key, cfg,
-                lanes=lanes, block_r=block_r,
-                chunk_spp=min(spp_per_pass, 256))
-        elif use_wavefront:
+        if use_wavefront:
             from pathtrace_tpu.integrator.wavefront import (
                 render_wavefront_chunked)
             pass_img, _ = render_wavefront_chunked(
@@ -176,6 +168,8 @@ def cmd_bench(args) -> int:
 
 
 def main(argv=None) -> int:
+    from pathtrace_tpu.utils.cache import setup_compile_cache
+
     p = argparse.ArgumentParser(prog="pathtrace_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -191,7 +185,7 @@ def main(argv=None) -> int:
     pr.add_argument("--checkpoint", default="")
     pr.add_argument("--resume", action="store_true")
     pr.add_argument("--engine", default="wavefront",
-                    choices=("wavefront", "megakernel", "fused"))
+                    choices=("wavefront", "megakernel"))
     pr.add_argument("--hemisphere", default="cosine",
                     choices=("cosine", "uniform"),
                     help="diffuse hemisphere sampling A/B "
@@ -221,6 +215,7 @@ def main(argv=None) -> int:
     pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
+    setup_compile_cache()
     return args.fn(args)
 
 

@@ -19,16 +19,13 @@ records from the REGENERATING wavefront instead:
   (nee_light_pick), so the replay rebuilds the comparison operands.
   Records keyed by the path-local iteration are scheduler-independent by
   construction - the tape a wavefront writes is exactly the tape the
-  lockstep recorder would have written. ONE unique-index scatter per
-  bounce is the entire taping cost (a (slot, 2)-row scatter for separate
-  prim/shadow words measured 3x slower: 2-wide minor dims tile
-  terribly);
+  lockstep recorder would have written. ONE unique-index scatter of
+  one packed word per bounce is the entire taping cost;
 - the backward replays path-major chunks through diff/replay.py's
   differentiable reconstruction (no intersection search in the graph),
-  with jax.checkpoint per bounce so residuals stay O(chunk) (checkpoint
-  measured 3x FASTER than storing residuals: 46 vs 140 ms/chunk - the
-  residual HBM traffic dominates recompute on TPU), and chunks sorted
-  by taped path length so a lax.switch picks a static scan depth of
+  with jax.checkpoint per bounce so residuals stay O(chunk) (recompute
+  instead of storing per-bounce residuals in device memory), and chunks
+  sorted by taped path length so a lax.switch picks a static scan depth of
   4/8/max_iters per chunk instead of always paying max_iters.
 
 Reference analog: none (the reference has no gradients); this is the
@@ -67,7 +64,7 @@ def _pack_rec(hit, pid, sph, reached):
             | jnp.where(hit, _HIT_BIT, 0)
             | jnp.where(sph, _SPH_BIT, 0)
             | jnp.where(reached, _RCH_BIT, 0)
-            | jnp.minimum(pid, _PID_MASK))
+            | jnp.clip(pid, 0, _PID_MASK))
 
 
 def unpack_rec(packed):

@@ -1,10 +1,10 @@
 """Batch "SIMT" path integrator: all rays advance through bounces in
 lockstep, dead lanes masked.
 
-This is the TPU-native restructuring of the reference's per-thread
+This is the batched restructuring of the reference's per-thread
 megakernel GetColor_iter (CudaUtil.cuh:193-382): instead of one CUDA thread
 looping over its private path, a whole ray batch moves through one
-`lax.scan` over bounce iterations, every step a dense VPU op. Estimator
+`lax.scan` over bounce iterations, every step a dense array op. Estimator
 semantics are preserved exactly, quirks included:
 
 - additive NEE + emissive-hit every bounce, no MIS (CudaUtil.cuh:220-224 +
@@ -50,15 +50,15 @@ def _maybe_detach(x, cfg: IntegratorConfig):
 
 def default_raycast(scene: Scene):
     """Pick the best available intersection backend for this scene:
-    Pallas pair-block kernel (v3, KD cells only) > XLA binned clusters >
-    MXU-matmul coefficients > BVH traversal > brute.
+    v3 pair-block search (KD cells) > v1 binned clusters > MT-matmul
+    coefficients > BVH traversal > brute.
 
-    The pair-kernel route is gated on clusters.dup_map (KD cells): BVH-
-    subtree clusters overlap heavily around dense surfaces, so routing
-    them through the pair dispatch re-creates the overflow storms the KD
+    The v3 route is gated on clusters.dup_map (KD cells): BVH-subtree
+    clusters overlap heavily around dense surfaces, so routing them
+    through the pair dispatch re-creates the overflow storms the KD
     partition exists to avoid - with_binned() scenes keep the calibrated
     k=48 v1 path."""
-    if scene.pair_pack is not None and scene.clusters.dup_map is not None:
+    if scene.clusters is not None and scene.clusters.dup_map is not None:
         from pathtrace_tpu.accel.binned import raycast_binned_v3
         return raycast_binned_v3
     if scene.clusters is not None and scene.clusters.dup_map is None:
@@ -82,7 +82,7 @@ def default_shadow_raycast(scene: Scene):
     interpolation of the primary raycast."""
     from pathtrace_tpu.ops.intersect import shadow_brute
 
-    if scene.pair_pack is not None and scene.clusters.dup_map is not None:
+    if scene.clusters is not None and scene.clusters.dup_map is not None:
         from pathtrace_tpu.accel.binned import shadow_binned_v3
         return shadow_binned_v3
     if scene.mt is not None and scene.clusters is None:
@@ -123,8 +123,8 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     nl = scene.num_lights
     light_slot, light_tri = nee_light_pick(scene, draws)
     # Per-light geometry from the packed (L, 13) table (Scene.build): one
-    # tiny (R, L) gather replaces five one-hot matmuls over the (T,)
-    # triangle arrays (each materialized an (R, T_pad) product in HBM).
+    # gather from a tiny (L,) table instead of five over the (T,)
+    # triangle arrays.
     row = math3.gather_rows(jnp.asarray(scene.light_pack), light_slot)
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     area = row[:, 9]

@@ -7,6 +7,9 @@ pre-tonemap space (float32 .npy); tonemapping is for preview PNGs only.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 import jax.numpy as jnp
 
@@ -23,14 +26,29 @@ def to_uint8(x) -> np.ndarray:
     return (np.clip(x, 0.0, 1.0) * 255.99).astype(np.uint8)
 
 
-def write_png(path: str, linear_image, tonemap: bool = True) -> None:
-    from PIL import Image
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, filter 0, zlib)."""
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(rgb, np.uint8).reshape(
+                               h, w * 3)], axis=1)
 
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, linear_image, tonemap: bool = True) -> None:
     img = jnp.asarray(linear_image)
     if tonemap:
         img = aces_film(img)
-    arr = to_uint8(np.asarray(img))
-    Image.fromarray(arr, mode="RGB").save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(to_uint8(np.asarray(img))))
 
 
 def write_npy(path: str, linear_image) -> None:

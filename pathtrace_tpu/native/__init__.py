@@ -3,9 +3,10 @@
 The reference's host runtime (scene ingest + BVH build, bvh.cpp /
 CudaPrimitive.cu) is C++; ours is too where it counts: the SAH build is
 the host-side hot path (tens of thousands of per-node sorts). The library
-is compiled on demand with g++ (no pip deps; pybind11 not available in
-this image) and cached next to the source; accel/bvh.py falls back to the
-numpy reference implementation when no compiler is present.
+is compiled from bvh_builder.cpp with g++ on first use into build/ (a
+git-ignored directory next to the source) and rebuilt when the source is
+newer; accel/bvh.py falls back to the numpy reference implementation when
+no compiler is present.
 """
 
 from __future__ import annotations
@@ -19,15 +20,16 @@ _LIB = None
 _LOCK = threading.Lock()
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "bvh_builder.cpp")
-_SO = os.path.join(_DIR, "libpathtrace_native.so")
+_SO = os.path.join(_DIR, "build", "libpathtrace_native.so")
 
 
 def _compile() -> str | None:
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
         return _SO
     try:
+        os.makedirs(os.path.dirname(_SO), exist_ok=True)
         subprocess.run(
-            ["g++", "-O2", "-march=native", "-shared", "-fPIC", "-std=c++17",
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
              _SRC, "-o", _SO + ".tmp"],
             check=True, capture_output=True, timeout=120)
         os.replace(_SO + ".tmp", _SO)

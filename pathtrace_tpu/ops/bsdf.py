@@ -408,9 +408,8 @@ def pdf_pure_refractive(mat: Material, frame: ShadeFrame, wo, wi) -> jnp.ndarray
 # ---------------------------------------------------------------------------
 # Branchless dispatch over the four lobes (wavefront-friendly masked select;
 # the lobe-sorted wavefront pipeline shades each lobe densely instead).
-# Select chains, NOT stack+take_along_axis: per-row dynamic gathers lower
-# to serial kCustom fusions on TPU (profiled as a top integrator cost),
-# while nested where's stay dense VPU selects.
+# Select chains, not stack+take_along_axis: nested where's stay dense
+# elementwise selects that XLA fuses.
 # ---------------------------------------------------------------------------
 
 def _select4(lobe, v0, v1, v2, v3):

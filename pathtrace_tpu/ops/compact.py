@@ -2,22 +2,10 @@
 
 The north star restructures divergent per-ray control flow into dense
 batches via counting-sort compaction by (alive, lobe) keys (SURVEY.md §2
-"Path integrator" row). On a TPU the four-lobe shade is usually cheaper
-branchless (masked select over lobes, VPU) than a per-bounce sort - but
-the compaction op itself is needed for:
-
-- lobe-sorted shading experiments (measured SLOWER than branchless: the
-  sort + 4 gather/scatter passes cost more than evaluating all four
-  lobes' VPU arithmetic on every lane; see tools/lobe_sort_bench.py)
-- any fixed-capacity queue maintenance
-
-NOTE: the production mesh traversal does NOT use this module - its
-dispatch is sort-free (accel/binned.py build_pair_dispatch_v3's
-arithmetic slot inversion replaced the counting-sort generation after
-per-op tracing showed every p-sized routed op costing 2-9 ms at
-p = R*K). The consumers today are tools/lobe_sort_bench.py and the
-unit test; the module stays as the reusable compaction primitive the
-survey prescribes.
+"Path integrator" row). The production paths do not use it: shading is
+branchless over the four lobes, and the mesh traversal's dispatch is
+sort-free (accel/binned.py build_pair_dispatch_v3). It stays as the
+reusable compaction primitive for fixed-capacity queue maintenance.
 
 Implemented as a stable vectorized counting sort: O(R*K) one-hot
 histogram + exclusive-scan offsets + rank-within-class, all dense ops

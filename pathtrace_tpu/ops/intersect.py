@@ -1,4 +1,4 @@
-"""Vectorized ray-primitive intersection (VPU-dense, SoA in/out).
+"""Vectorized ray-primitive intersection (dense, SoA in/out).
 
 Replaces the reference's per-thread scalar hit functions:
 - Triangle::hit — Möller-Trumbore with backface cull (CudaPrimitive.cuh:89-157)
@@ -33,8 +33,7 @@ BIG_T = 999999.0  # reference RayCast default t_max (CudaUtil.cuh:93)
 def closest_masked(t_masked: jnp.ndarray):
     """(best_t, idx, hit) over a (R, N) matrix with inf marking invalid.
 
-    Dense reductions instead of argmin + take_along_axis (per-row dynamic
-    gathers lower to serial kCustom fusions on TPU; see ops/mt_matmul.py).
+    Dense reductions instead of argmin + take_along_axis.
     Ties break to the lowest index, matching argmin.
     """
     import jax
@@ -123,8 +122,7 @@ def _gather_tri_hit(scene: Scene, org, dirn, t, u, v, idx):
     w0 = (1.0 - u - v)[:, None]
     wu = u[:, None]
     wv = v[:, None]
-    g = math3.gather_rows  # one-hot matmul for small tables (TPU gathers
-    # lower to serial per-row fusions; the one-hot is CSE'd across fields)
+    g = math3.gather_rows
 
     def interp(a0, a1, a2):
         return w0 * g(a0, idx) + wv * g(a1, idx) + wu * g(a2, idx)
@@ -202,9 +200,8 @@ def finalize_hit_packed(scene: Scene, org, dirn, t_min, hit,
     """finalize_hit for triangle-only scenes through ONE row gather.
 
     The generic tail issues ~21 separate (R,)-wide gathers (verts for the
-    mt recompute, 12 attribute arrays, 6 material fields) - each pays
-    TPU's per-row gather cost (traced ~5 ms/bounce at 65k lanes on
-    blob82k). Here the per-triangle row is [geom_pack (42) | materials
+    mt recompute, 12 attribute arrays, 6 material fields). Here the
+    per-triangle row is [geom_pack (42) | materials
     (12)], concatenated in-trace (differentiable w.r.t. the material
     pytree: concat + gather VJP is a scatter-add) and gathered ONCE.
     Semantics mirror finalize_hit + mt_gather exactly: swapped u/v

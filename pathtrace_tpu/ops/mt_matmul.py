@@ -1,9 +1,9 @@
-"""Möller-Trumbore intersection as MXU matmuls.
+"""Möller-Trumbore intersection as matrix products.
 
-The TPU's FLOPs live in the 128x128 systolic array, not the VPU - so the
-#1 hot op (ray-triangle intersection, the reference's Triangle::hit inside
-RayCast, CudaPrimitive.cuh:89-157 + CudaUtil.cuh:93-148) is reformulated
-as a matrix product:
+The #1 hot op (ray-triangle intersection, the reference's Triangle::hit
+inside RayCast, CudaPrimitive.cuh:89-157 + CudaUtil.cuh:93-148) is
+reformulated as a matrix product, so all rays against all triangles is
+one dense GEMM plus elementwise tests:
 
 With ray origin O and direction D, the four MT quantities are each
 *linear* in the 16-dim ray feature vector
@@ -17,7 +17,7 @@ because (with N = E1 x E2):
     v_num  = v * det   = ((O - V0) x E1) . D           (bilinear in D,O)
 
 So intersection against ALL T triangles is   F (R,16) @ M (16,T)   per
-quantity - four MXU matmuls - followed by elementwise accept tests and a
+quantity - four matmuls - followed by elementwise accept tests and a
 masked min-reduction. The coefficient matrices are fitted numerically in
 float64 on the host by probing the exact scalar formulas at 16 basis rays
 (immune to sign/index-convention slips; validated against the direct
@@ -124,20 +124,18 @@ def build_mt_coeffs(positions: np.ndarray, pad_to: int = 128,
 
 def mt_matmul_closest(coeffs: MTCoeffs, org: jnp.ndarray, dirn: jnp.ndarray,
                       t_min: jnp.ndarray, t_max: jnp.ndarray):
-    """Closest-hit over all triangles via four MXU matmuls (XLA path).
+    """Closest-hit over all triangles via four matmuls (XLA path).
 
     Returns (tri_hit (R,), best_t, tri_idx, u, v) with the reference's
     accept semantics: det >= EPS (backface cull), 0 <= u_num <= det,
     v_num >= 0, u_num + v_num <= det, t in [t_min, t_max].
     """
     f = ray_features(org, dirn)
-    # Precision.HIGHEST is load-bearing: TPU matmuls truncate f32 INPUTS
-    # to bf16 by default (preferred_element_type only fixes the
+    # Precision.HIGHEST is load-bearing: IEEE f32 products. The default
+    # runs TF32 on the GPU (preferred_element_type only fixes the
     # accumulator), and ~1e-3-relative products cannot order the
     # reference scene's light 0.3%-of-t below the ceiling - NEE and
-    # emissive hits silently die and TPU renders come out ~4x dark
-    # (caught by docs/tpu_cpu_agreement.json; the fused kernel pays the
-    # same cost via its explicit bf16 hi/lo split, bounce_kernel.py).
+    # emissive hits silently die and renders come out ~4x dark.
     det = jnp.dot(f, coeffs.det, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
     t_num = jnp.dot(f, coeffs.t_num, preferred_element_type=jnp.float32,
@@ -154,9 +152,8 @@ def mt_matmul_closest(coeffs: MTCoeffs, org: jnp.ndarray, dirn: jnp.ndarray,
     valid &= (u_num >= 0.0) & (u_num <= det)
     valid &= (v_num >= 0.0) & (u_num + v_num <= det)
 
-    # payload-carrying min WITHOUT argmin/take_along_axis: per-row dynamic
-    # gathers lower to serial kCustom fusions on TPU (profiled at >50% of
-    # integrator device time); dense masked reductions are ~40x cheaper.
+    # payload-carrying min as dense masked reductions (no argmin /
+    # take_along_axis), which XLA fuses with the accept tests.
     t_masked = jnp.where(valid, t, jnp.inf)
     best_t = jnp.min(t_masked, axis=1)
     hit = jnp.isfinite(best_t)
@@ -176,7 +173,7 @@ def mt_matmul_closest(coeffs: MTCoeffs, org: jnp.ndarray, dirn: jnp.ndarray,
 
 def raycast_matmul(scene, org: jnp.ndarray, dirn: jnp.ndarray,
                    t_min=None, t_max=None):
-    """Drop-in raycast using the MXU-matmul intersection (scene.mt)."""
+    """Drop-in raycast using the matmul intersection (scene.mt)."""
     from pathtrace_tpu.ops.intersect import BIG_T, finalize_hit
     import jax
 
@@ -205,7 +202,7 @@ def raycast_matmul(scene, org: jnp.ndarray, dirn: jnp.ndarray,
 
 
 def shadow_matmul(scene, org: jnp.ndarray, dirn: jnp.ndarray, t_min, t_max):
-    """MXU-matmul shadow raycast -> (hit, prim_id, is_sphere).
+    """Matmul shadow raycast -> (hit, prim_id, is_sphere).
 
     NEE's acceptance only consumes the winner's identity (see
     nee_contribution), so no exact-t recompute is needed - the search t
@@ -223,17 +220,17 @@ def shadow_matmul(scene, org: jnp.ndarray, dirn: jnp.ndarray, t_min, t_max):
                            idx)
 
 
-CHUNKED_THRESHOLD = 8192  # full (R, T_pad) products above this would blow HBM
+CHUNKED_THRESHOLD = 8192  # full (R, T_pad) products above this are too big
 
 
 def mt_matmul_closest_chunked(coeffs: MTCoeffs, org: jnp.ndarray,
                               dirn: jnp.ndarray, t_min: jnp.ndarray,
                               t_max: jnp.ndarray, block: int = 4096):
-    """Closest-hit via MXU matmuls scanned over triangle-column blocks.
+    """Closest-hit via matmuls scanned over triangle-column blocks.
 
     Same semantics as mt_matmul_closest but peak memory O(R * block)
     instead of O(R * T): a 65k-ray x 82k-tri product is 21.5 GB in f32
-    (exceeds HBM); this scans (R, block) products with a running
+    (more than device memory holds); this scans (R, block) products with a running
     payload-carrying min.
     """
     t_pad = coeffs.det.shape[1]

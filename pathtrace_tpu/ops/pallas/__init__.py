@@ -1,4 +1,1 @@
-from pathtrace_tpu.ops.pallas.intersect_kernel import (mt_closest_pallas,
-                                                      raycast_pallas)
-
-__all__ = ["mt_closest_pallas", "raycast_pallas"]
+"""Hand-written GPU kernels (Pallas through Triton)."""

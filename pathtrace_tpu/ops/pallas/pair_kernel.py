@@ -1,345 +1,175 @@
-"""Pallas pair-block traversal kernel: the mesh-scale raycast core.
+"""Pair-block search: the inner loop of the KD-cell mesh traversal.
 
-The binned two-level traversal (accel/binned.py) culls rays against
-cluster AABBs and dispatches (ray, cluster) pairs grouped by cluster so
-each pair-block reads ONE cluster's Möller-Trumbore coefficient tile.
-Its XLA realization gathered the coefficient tiles (16 MB/group), the
-per-pair ray features, and the per-pair t bounds through XLA's serial
-gather lowering - stage profiling on blob82k put the whole group loop +
-its gathers at ~8 ms per 16k-ray raycast (tools/binned_profile.py).
+The v3 dispatch (accel/binned.py) groups (ray, cell) pairs into blocks of
+`block_pairs` pairs that all belong to one cell. For every pair, the
+search finds the closest triangle of that cell the ray hits, using the
+Möller-Trumbore coefficient form of ops/mt_matmul.py: the four MT
+quantities (det, t*det, u*det, v*det) are the ray's 16 features times
+the cell's (16, C) coefficient tile, one tile per quantity.
 
-This kernel moves the pair-block stage onto the TPU the way the fused
-bounce kernel (bounce_kernel.py) moved the small-scene search: one grid
-program per pair-block, with the block's cluster id SCALAR-PREFETCHED so
-the BlockSpec index_map DMAs exactly the needed coefficient tile from
-HBM - a hardware gather at tile granularity, free of XLA's per-element
-scatter/gather lowering. Per block:
+Two implementations share one contract and one accept test (_accept):
 
-  1. the cluster's [M_hi | M_hi | M_lo] bf16 split tile (4C, 48) arrives
-     via the prefetched index_map (same split-precision scheme as
-     bounce_kernel._closest_tri: ~1.6e-5 relative products, enough to
-     order near-coincident geometry; plain bf16 is not),
-  2. per-pair ray features (16, B) are sliced from the pre-gathered
-     feature matrix (built XLA-side - one dense row gather),
-  3. ONE MXU matmul (4C, 48) @ (48, B) yields det/t/u/v numerators for
-     all C triangles x B pairs; accept tests + per-pair winner run on
-     banded approximate t,
-  4. (closest mode) the winner's v0/e1/e2 are fetched EXACTLY via the
-     bf16x3-split one-hot matmul and Möller-Trumbore is recomputed
-     elementwise at the winner, gating the banded accept,
-  5. outputs are per-pair rows (t, u, v, hit, global tri id) - the
-     cross-cluster per-ray reduction stays outside (accel/binned.py).
+- pair_search_plain: jnp. It gathers each block's tiles and forms every
+  product with one einsum, so XLA writes (nb, 4, B, C) f32 products to
+  device memory and reads them back for the accept tests.
+- pair_search_kernel: Pallas through Triton. One program per block loads
+  its cell id, walks the cell's members in chunks of CHUNK triangles and
+  keeps the products, the accept tests and the running per-pair winner
+  in registers. The walk stops at the cell's member count.
 
-Shadow mode skips 4 (the NEE identity test only needs the winner's
-ordering and id, see bounce_kernel's shadow note) and masks a per-pair
-excluded triangle id.
+pair_search picks the implementation by platform in one place.
 
-Reference parity: the accept semantics replicate RayCast's closest-hit
-contract (CudaUtil.cuh:93-148) with backface cull det >= EPS
-(CudaPrimitive.cuh:99); the two-level dispatch itself has no reference
-analog (per-thread stack walks are hostile to a vector machine).
+Precision: every product runs in IEEE f32 (Precision.HIGHEST, which
+Triton lowers to FMA and XLA to an f32 GEMM). Never the default: Pallas
+through Triton and cuBLAS would use TF32, whose ~1e-3 relative products
+cannot order geometry 0.3% apart in t and turn renders several times too
+dark.
+
+Reference parity: the accept semantics are RayCast's closest-hit contract
+(CudaUtil.cuh:93-148) with backface cull det >= EPS
+(CudaPrimitive.cuh:99), the same tests as ops/mt_matmul.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from pathtrace_tpu.ops.pallas.bsdf_t import EPS, TINY
-from pathtrace_tpu.utils.pytree import pytree_dataclass
+from pathtrace_tpu.utils.math3 import EPS, TINY
 
-BIG = 3.0e38
-ACCEPT_SLACK = 1e-4   # same selection band as bounce_kernel._closest_tri
-
-# attr tile rows (f32 values, bf16x3-split): v0 | e1 | e2 | 7 pad
-_ROWS_ATTR = 16
-
-
-@pytree_dataclass(static=("num_clusters", "cluster_cap"))
-class PairPack:
-    """Per-cluster coefficient + vertex tiles for the pair kernel."""
-
-    m_packed: jnp.ndarray    # (M, 4C, 48) bf16 [hi|hi|lo] split
-    attrs_hi: jnp.ndarray    # (M, 16, C) bf16 \
-    attrs_mid: jnp.ndarray   # (M, 16, C) bf16  > exact bf16x3 split
-    attrs_lo: jnp.ndarray    # (M, 16, C) bf16 /
-    prim_start: jnp.ndarray  # (M,) i32 global tri base per cluster
-    num_clusters: int
-    cluster_cap: int
+NUM_FEATURES = 16
+NUM_QUANTITIES = 4          # det, t_num, u_num, v_num
+PRECISION = jax.lax.Precision.HIGHEST
+# tuned on an H100 over block pairs 32/64/128 x chunk 16/32/64 x 4/8
+# warps (PERF.md): 64 pairs (accel/binned.BLOCK_PAIRS), 32-triangle
+# chunks, 8 warps
+CHUNK = 32                  # triangles per inner step of the kernel
+NUM_WARPS = 8
 
 
-def build_pair_pack(clusters, positions_reordered: np.ndarray,
-                    global_ids: np.ndarray = None) -> PairPack:
-    """Host-side pack build from ClusterArrays (accel/binned.py).
+def _accept(det, t_num, u_num, v_num, tmin, tmax):
+    """t where the pair's ray hits the triangle, +inf elsewhere."""
+    inv_det = jnp.where(jnp.abs(det) > TINY, 1.0 / det, 0.0)
+    t = t_num * inv_det
+    valid = det >= EPS
+    valid &= (t >= tmin) & (t <= tmax)
+    valid &= (u_num >= 0.0) & (u_num <= det)
+    valid &= (v_num >= 0.0) & (u_num + v_num <= det)
+    return jnp.where(valid, t, jnp.inf)
 
-    positions_reordered: (T, 3, 3) in BVH leaf-contiguous order.
-    global_ids: optional (T,) member slot -> emitted tri id (KD scenes
-    pass dup_map so the kernel emits ORIGINAL ids directly - the XLA-side
-    dup gather was ~0.55 ms/raycast, and duplicated copies of one tri
-    then produce identical reduce keys). Default: prim_start + local.
-    Ids ride attr row 9 through the exact bf16x3 split (ids < 2^24 split
-    into 3x8 mantissa bits losslessly; the one-hot matmul keeps f32
-    accumulation, so the reconstruction is exact).
+
+def pair_search_plain(coeffs, block_cell, block_count, feats, tmin, tmax,
+                      *, block_pairs: int):
+    """Closest hit per pair slot, in jnp.
+
+    coeffs: (M, 4, 16, C) cell tiles (ClusterArrays.coeffs).
+    block_cell: (nb,) i32 cell of each block.
+    block_count: (nb,) i32 members to search per block (the cell's member
+    count; 0 for the padding blocks at the end of the slot budget).
+    feats: (cap, 16) per-slot ray features; tmin/tmax: (cap,).
+    Returns (t (cap,) f32, +inf where nothing is hit; member (cap,) i32,
+    the winner's slot within its cell, lowest on ties, 0 on a miss).
     """
-    import ml_dtypes
-
-    m = clusters.num_clusters
-    c = clusters.cluster_cap
-    coeffs = np.asarray(clusters.coeffs)          # (M, 16, C, 4)
-    # -> (M, 4C, 16): [det rows | t rows | u rows | v rows]
-    mt = coeffs.transpose(0, 3, 2, 1).reshape(m, 4 * c, 16)
-    mt = np.ascontiguousarray(mt, np.float32)
-    m_hi = mt.astype(ml_dtypes.bfloat16)
-    m_lo = (mt - m_hi.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    m_packed = np.concatenate([m_hi, m_hi, m_lo], axis=2)  # (M, 4C, 48)
-
-    ps = np.asarray(clusters.prim_start)
-    cnt = np.asarray(clusters.prim_count)
-    if global_ids is None:
-        global_ids = np.arange(positions_reordered.shape[0], dtype=np.int64)
-    assert int(np.max(global_ids, initial=0)) < (1 << 24)
-    attrs = np.zeros((m, _ROWS_ATTR, c), np.float32)
-    v0 = positions_reordered[:, 0]
-    e1 = positions_reordered[:, 1] - v0
-    e2 = positions_reordered[:, 2] - v0
-    for k in range(m):
-        s, n = int(ps[k]), int(cnt[k])
-        attrs[k, 0:3, :n] = v0[s:s + n].T
-        attrs[k, 3:6, :n] = e1[s:s + n].T
-        attrs[k, 6:9, :n] = e2[s:s + n].T
-        attrs[k, 9, :n] = global_ids[s:s + n]
-    hi = attrs.astype(ml_dtypes.bfloat16)
-    mid = (attrs - hi.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    lo = (attrs - hi.astype(np.float32) - mid.astype(np.float32)).astype(
-        ml_dtypes.bfloat16)
-
-    return PairPack(
-        m_packed=jnp.asarray(m_packed),
-        attrs_hi=jnp.asarray(hi), attrs_mid=jnp.asarray(mid),
-        attrs_lo=jnp.asarray(lo),
-        prim_start=jnp.asarray(ps.astype(np.int32)),
-        num_clusters=m, cluster_cap=c,
-    )
-
-
-def _dot3r(a, b):
-    return jnp.sum(a * b, axis=0, keepdims=True)
-
-
-def _cross3r(a, b):
-    return jnp.concatenate([
-        a[1:2] * b[2:3] - a[2:3] * b[1:2],
-        a[2:3] * b[0:1] - a[0:1] * b[2:3],
-        a[0:1] * b[1:2] - a[1:2] * b[0:1],
-    ], axis=0)
-
-
-def _pair_kernel(bc_ref, bps_ref, f_ref, meta_ref, m_ref,
-                 ah_ref, am_ref, al_ref, out_ref, *,
-                 c_cap, mode, lean=False):
-    """One pair-block: search cluster bc[i] for B pairs.
-
-    meta rows (lean=False): 0 slot-live flag (< 0 marks a dead slot),
-    1 tmin, 2 tmax, 3 excluded member-space tri id (-1 none).
-    meta rows (lean=True, the v3 dispatch): 0 tmin, 1 tmax - dead slots
-    carry ZERO feature columns instead of a live flag (zero features
-    make every product zero, so det < EPS rejects them for free), the
-    exclusion test is dropped (no caller passes one; NEE identity-tests
-    the winner instead), and the t-range band tests are det-multiplied
-    so the only per-element division left is the winner ordering.
-    out rows: 0 t, 1 u, 2 v, 3 hit, 4 emitted tri id (attr row 9: the
-    pack builder's global_ids - ORIGINAL ids for KD scenes; f32, < 2^24).
-
-    Padding blocks (bps[i] < 0, the sorted invalid-run tail) skip all
-    compute via pl.when; their out block is garbage, masked downstream
-    by pair_valid / the slot_ray row.
-    """
-    i = pl.program_id(0)
-    prim_start = bps_ref[i]
-
-    @pl.when(prim_start >= 0)
-    def _():
-        feats = f_ref[:]                                  # (16, B) f32
-        fh = feats.astype(jnp.bfloat16)
-        fl = (feats - fh.astype(jnp.float32)).astype(jnp.bfloat16)
-        f48 = jnp.concatenate([fh, fl, fh], axis=0)       # (48, B)
-
-        mtile = m_ref[0]                                  # (4C, 48) bf16
-        prods = jnp.dot(mtile, f48, preferred_element_type=jnp.float32)
-        det = prods[0 * c_cap:1 * c_cap]
-        t_num = prods[1 * c_cap:2 * c_cap]
-        u_num = prods[2 * c_cap:3 * c_cap]
-        v_num = prods[3 * c_cap:4 * c_cap]
-
-        sl = ACCEPT_SLACK
-        tri_local = jax.lax.broadcasted_iota(jnp.int32, det.shape, 0)
-        t = t_num / jnp.maximum(det, 1e-30)
-        if lean:
-            tmin = meta_ref[0:1]
-            tmax = meta_ref[1:2]
-            # det-multiplied band tests (valid only matters where
-            # det >= EPS > 0, so the multiply preserves the inequality):
-            # t >= tmin - sl(1+|t|)  <=>  t_num + sl|t_num| >= det(tmin-sl)
-            # t <= tmax + sl(1+|t|)  <=>  t_num - sl|t_num| <= det(tmax+sl)
-            ab = sl * jnp.abs(t_num)
-            valid = (det >= EPS)
-            valid &= (t_num + ab >= det * (tmin - sl))
-            valid &= (t_num - ab <= det * (tmax + sl))
-            # u <= det is implied by v >= 0 & u+v <= det (within slack)
-            valid &= (u_num >= -sl * det)
-            valid &= (v_num >= -sl * det)
-            valid &= (u_num + v_num <= det * (1.0 + 2 * sl))
-        else:
-            live = meta_ref[0:1] >= 0.0
-            tmin = meta_ref[1:2]
-            tmax = meta_ref[2:3]
-            excl = meta_ref[3:4]
-            band = sl * (1.0 + jnp.abs(t))
-            valid = (det >= EPS) & live
-            valid &= (t >= tmin - band) & (t <= tmax + band)
-            valid &= (u_num >= -sl * det) & (u_num <= det * (1.0 + sl))
-            valid &= ((v_num >= -sl * det)
-                      & (u_num + v_num <= det * (1.0 + 2 * sl)))
-            gid = (tri_local + prim_start).astype(jnp.float32)
-            valid &= gid != excl      # NEE light-identity exclusion
-
-        t_masked = jnp.where(valid, t, BIG)
-        best = jnp.min(t_masked, axis=0, keepdims=True)   # (1, B)
-        arg = jnp.min(jnp.where(t_masked <= best, tri_local, c_cap),
-                      axis=0, keepdims=True)
-        arg = jnp.minimum(arg, c_cap - 1)
-        hit = best < BIG
-        zero = jnp.zeros_like(best)
-
-        def exact_at(argk):
-            """Exact MT + emitted id at one candidate per pair (row ops
-            on (1, B); only the one-hot build touches (C, B))."""
-            ohk = (tri_local == argk).astype(jnp.bfloat16)
-            rows = jnp.dot(ah_ref[0], ohk,
-                           preferred_element_type=jnp.float32)
-            rows += jnp.dot(am_ref[0], ohk,
-                            preferred_element_type=jnp.float32)
-            rows += jnp.dot(al_ref[0], ohk,
-                            preferred_element_type=jnp.float32)
-            v0 = rows[0:3]
-            e1 = rows[3:6]
-            e2 = rows[6:9]
-            idk = rows[9:10]
-            org = feats[1:4]
-            dirn = feats[4:7]
-            tvec = org - v0
-            p = _cross3r(dirn, e2)
-            q = _cross3r(tvec, e1)
-            det_x = _dot3r(p, e1)
-            inv_det = jnp.where(jnp.abs(det_x) > TINY, 1.0 / det_x, 0.0)
-            t_x = _dot3r(q, e2) * inv_det
-            u_x = _dot3r(p, tvec)
-            v_x = _dot3r(q, dirn)
-            ok = (det_x >= EPS)
-            ok &= (t_x >= tmin) & (t_x <= tmax)
-            ok &= (u_x >= 0.0) & (u_x <= det_x)
-            ok &= (v_x >= 0.0) & (u_x + v_x <= det_x)
-            return ok, t_x, u_x * inv_det, v_x * inv_det, idk
-
-        if mode == "shadow":
-            oh = (tri_local == arg).astype(jnp.bfloat16)
-            id_win = (jnp.dot(ah_ref[0, 9:10], oh,
-                              preferred_element_type=jnp.float32)
-                      + jnp.dot(am_ref[0, 9:10], oh,
-                                preferred_element_type=jnp.float32)
-                      + jnp.dot(al_ref[0, 9:10], oh,
-                                preferred_element_type=jnp.float32))
-            t_out = jnp.where(hit, best, BIG)
-            u_out = zero
-            v_out = zero
-        else:
-            # TOP-2 exact recompute: the banded accept can select a
-            # near-edge candidate whose exact test misses while the true
-            # hit is the runner-up (edge-adjacent triangles share a cell
-            # and tie in banded t), and the banded ordering can misorder
-            # true near-ties. Recomputing the two best candidates
-            # exactly and choosing by exact (ok, t) closes both classes;
-            # the recompute itself is (1, B)-row work.
-            ok1, t1, u1, v1, id1 = exact_at(arg)
-            ok1 &= hit
-            tm2 = jnp.where(tri_local == arg, BIG, t_masked)
-            best2 = jnp.min(tm2, axis=0, keepdims=True)
-            arg2 = jnp.min(jnp.where(tm2 <= best2, tri_local, c_cap),
-                           axis=0, keepdims=True)
-            arg2 = jnp.minimum(arg2, c_cap - 1)
-            ok2, t2, u2, v2, id2 = exact_at(arg2)
-            ok2 &= best2 < BIG
-            use2 = ok2 & (~ok1 | (t2 < t1))
-            hit = ok1 | ok2
-            t_out = jnp.where(use2, t2, jnp.where(ok1, t1, BIG))
-            u_out = jnp.where(use2, u2, jnp.where(ok1, u1, 0.0))
-            v_out = jnp.where(use2, v2, jnp.where(ok1, v1, 0.0))
-            id_win = jnp.where(use2, id2, id1)
-
-        out_ref[0:1] = t_out
-        out_ref[1:2] = u_out
-        out_ref[2:3] = v_out
-        out_ref[3:4] = hit.astype(jnp.float32)
-        out_ref[4:5] = id_win
-        out_ref[5:8] = jnp.zeros((3,) + best.shape[1:], jnp.float32)
-
-    @pl.when(prim_start < 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-
-@functools.partial(jax.jit, static_argnames=("c_cap", "block_pairs", "mode",
-                                             "interpret", "lean"))
-def pair_blocks_search(pack: PairPack, block_cluster, block_prim_start,
-                       feats_t, meta, *, c_cap, block_pairs=256,
-                       mode="closest", interpret=False, lean=False):
-    """Run the pair-block search over all blocks.
-
-    block_cluster/block_prim_start: (nb,) i32 (cluster id, its prim base).
-    feats_t: (16, cap) f32 per-pair ray features (cap = nb*block_pairs).
-    meta: (8, cap) f32 rows [tmin, tmax, exclude_gid, ...].
-    Returns (8, cap) f32 rows [t, u, v, hit, gid, 0, 0, 0].
-    """
-    nb = block_cluster.shape[0]
-    cap = feats_t.shape[1]
-    assert cap == nb * block_pairs, (cap, nb, block_pairs)
+    nb = block_cell.shape[0]
     b = block_pairs
+    c = coeffs.shape[-1]
+    f = feats.reshape(nb, b, NUM_FEATURES)
+    prods = jnp.einsum("nbf,nqfc->qnbc", f, coeffs[block_cell],
+                       precision=PRECISION,
+                       preferred_element_type=jnp.float32)
+    tm = _accept(prods[0], prods[1], prods[2], prods[3],
+                 tmin.reshape(nb, b, 1), tmax.reshape(nb, b, 1))
+    lane = jax.lax.broadcasted_iota(jnp.int32, tm.shape, 2)
+    tm = jnp.where(lane < block_count[:, None, None], tm, jnp.inf)
+    best = jnp.min(tm, axis=2)
+    arg = jnp.min(jnp.where(tm <= best[..., None], lane, c), axis=2)
+    return best.reshape(-1), arg.reshape(-1)
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nb,),
-        in_specs=[
-            pl.BlockSpec((16, b), lambda i, bc, bps: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, b), lambda i, bc, bps: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 4 * c_cap, 48),
-                         lambda i, bc, bps: (bc[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _ROWS_ATTR, c_cap),
-                         lambda i, bc, bps: (bc[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _ROWS_ATTR, c_cap),
-                         lambda i, bc, bps: (bc[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _ROWS_ATTR, c_cap),
-                         lambda i, bc, bps: (bc[i], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, b), lambda i, bc, bps: (0, i),
-                               memory_space=pltpu.VMEM),
-    )
-    kernel = functools.partial(_pair_kernel, c_cap=c_cap, mode=mode,
-                               lean=lean)
+
+def _pair_kernel(cell_ref, count_ref, f_ref, tmin_ref, tmax_ref, coef_ref,
+                 t_ref, arg_ref, *, chunk):
+    """One block: B pairs against the members of one cell."""
+    cell = cell_ref[0]
+    count = count_ref[0]
+    f = f_ref[...]                                     # (B, 16)
+    tmin = tmin_ref[...][:, None]
+    tmax = tmax_ref[...][:, None]
+    rows0 = cell * (NUM_QUANTITIES * NUM_FEATURES)
+
+    def body(j, carry):
+        best, arg = carry
+        cols = pl.ds(pl.multiple_of(j * chunk, chunk), chunk)
+
+        def product(q):
+            rows = pl.ds(rows0 + q * NUM_FEATURES, NUM_FEATURES)
+            return pl.dot(f, coef_ref[rows, cols], precision=PRECISION)
+
+        tm = _accept(product(0), product(1), product(2), product(3),
+                     tmin, tmax)                       # (B, chunk)
+        lane = j * chunk + jax.lax.broadcasted_iota(jnp.int32, tm.shape, 1)
+        tm = jnp.where(lane < count, tm, jnp.inf)
+        m = jnp.min(tm, axis=1)
+        a = jnp.min(jnp.where(tm <= m[:, None], lane,
+                              jnp.iinfo(jnp.int32).max), axis=1)
+        better = m < best
+        return jnp.where(better, m, best), jnp.where(better, a, arg)
+
+    b = f.shape[0]
+    init = (jnp.full((b,), jnp.inf, jnp.float32), jnp.zeros((b,), jnp.int32))
+    best, arg = jax.lax.fori_loop(0, pl.cdiv(count, chunk), body, init)
+    t_ref[...] = best
+    arg_ref[...] = arg
+
+
+@functools.partial(jax.jit, static_argnames=("block_pairs", "chunk",
+                                             "interpret"))
+def pair_search_kernel(coeffs, block_cell, block_count, feats, tmin, tmax,
+                       *, block_pairs: int, chunk: int = CHUNK,
+                       interpret: bool = False):
+    """pair_search_plain's contract as one Pallas-Triton program per
+    block, walking ceil(block_count / chunk) chunks of the cell."""
+    m, _, _, c = coeffs.shape
+    nb = block_cell.shape[0]
+    b = block_pairs
+    chunk = min(chunk, c)
+    assert c % chunk == 0, (c, chunk)
+    assert b >= 16 and b & (b - 1) == 0, b
+    cap = nb * b
+    per_block = pl.BlockSpec((1,), lambda i: (i,))
+    per_pair = pl.BlockSpec((b,), lambda i: (i,))
     return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((8, cap), jnp.float32),
+        functools.partial(_pair_kernel, chunk=chunk),
+        grid=(nb,),
+        in_specs=[per_block, per_block,
+                  pl.BlockSpec((b, NUM_FEATURES), lambda i: (i, 0)),
+                  per_pair, per_pair, pl.no_block_spec],
+        out_specs=[per_pair, per_pair],
+        out_shape=[jax.ShapeDtypeStruct((cap,), jnp.float32),
+                   jax.ShapeDtypeStruct((cap,), jnp.int32)],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=2),
+        backend="triton",
         interpret=interpret,
-    )(block_cluster, block_prim_start, feats_t, meta,
-      pack.m_packed, pack.attrs_hi, pack.attrs_mid, pack.attrs_lo)
+        name="pair_block_search",
+    )(block_cell, block_count, feats, tmin, tmax,
+      coeffs.reshape(m * NUM_QUANTITIES * NUM_FEATURES, c))
+
+
+# the one place an implementation is chosen, by platform
+IMPLEMENTATIONS = {"gpu": pair_search_kernel, "cpu": pair_search_plain}
+
+
+def pair_search(coeffs, block_cell, block_count, feats, tmin, tmax, *,
+                block_pairs: int):
+    """The platform's implementation: the kernel on the GPU, the plain
+    search on the CPU. Any other platform is an error."""
+    platform = jax.default_backend()
+    if platform not in IMPLEMENTATIONS:
+        raise NotImplementedError(
+            f"no pair-block search for platform {platform!r}")
+    return IMPLEMENTATIONS[platform](coeffs, block_cell, block_count, feats,
+                                     tmin, tmax, block_pairs=block_pairs)

@@ -1,12 +1,12 @@
 """Multi-host bootstrap.
 
 The reference is single-process/single-GPU with no communication backend
-(SURVEY.md §2: no NCCL/MPI; unified memory only). For pod-scale runs we
-use jax.distributed + a ("host", "chip") mesh: scene arrays replicated
-(broadcast once over DCN at setup), film tiles and rays sharded, psum over
-ICI within a slice and DCN across hosts.
+(SURVEY.md §2: no NCCL/MPI; unified memory only). For several hosts we
+use jax.distributed + a 1-D mesh over every device: scene arrays
+replicated (broadcast once at setup), film tiles and rays sharded, psum
+over NVLink within a host and the network across hosts.
 
-On a single host this degenerates to the plain chip mesh
+On a single host this degenerates to the plain device mesh
 (parallel/mesh.py), which is what CI and the virtual-device tests use.
 """
 
@@ -35,7 +35,7 @@ def initialize(coordinator_address: str | None = None,
 
 def global_ray_mesh() -> Mesh:
     """1-D mesh over ALL global devices (across hosts). Rays shard on it;
-    collectives ride ICI intra-slice and DCN inter-host automatically."""
+    XLA picks the links for the collectives (NVLink within a host)."""
     return jax.make_mesh((len(jax.devices()),), (RAY_AXIS,))
 
 

@@ -1,19 +1,20 @@
-"""Multi-chip scaling: rays/tiles sharded over a device mesh.
+"""Multi-device scaling: rays/tiles sharded over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2: its only parallelism is
-one CUDA thread per pixel); this module adds the scaling the north star
-demands, the TPU-native way:
+one CUDA thread per pixel); this module adds scaling over several GPUs:
 
-- a 1-D `jax.sharding.Mesh` over all chips (extend to ("host","chip") for
-  multi-host pods via jax.distributed.initialize, see parallel/distributed)
-- the pixel/ray batch is sharded on the mesh axis; the scene (BVH +
-  geometry + materials) is replicated in every chip's HBM
-- rendering needs NO communication (each chip owns its pixels); gradient
-  steps psum material gradients and the loss over ICI
+- a 1-D `jax.sharding.Mesh` over all devices (cards of one host are
+  joined all to all, so the mesh follows the pixel split alone; several
+  hosts join through jax.distributed.initialize, see parallel/distributed)
+- the pixel/ray batch is sharded on the mesh axis; the scene (geometry,
+  acceleration structure, materials) is replicated in every device's
+  memory
+- rendering needs NO communication (each device owns its pixels);
+  gradient steps psum material gradients and the loss
 - determinism: RNG streams are keyed by logical ray id (utils/rng.py), so
-  an N-chip render is bit-identical to the 1-chip render
+  an N-device render traces the same paths as the 1-device render
 
-Collectives ride XLA (`psum`) - no hand-rolled NCCL analog.
+Collectives ride XLA (`psum`, lowered to NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -104,15 +105,9 @@ def render_grad_sharded(scene: Scene, camera: Camera, target: jnp.ndarray,
     """One distributed "training step" against a target image.
 
     Returns (loss, (tri_mat_grads, sphere_mat_grads)). Inside shard_map each
-    chip differentiates its local L2 tile loss w.r.t. the replicated
-    material pytree, then grads and loss are `psum`ed over ICI. The
-    compiled program coalesces every psum into ONE tuple all-reduce
-    (verified in HLO, tools/hlo_collectives.py); whether the TPU
-    scheduler additionally overlaps it with compute is immaterial at
-    these payloads - the gradient pytree is ~4 MB even at blob82k scale,
-    an ICI-time bound of <0.02% of the measured step
-    (docs/collective_overlap.json). This is the renderer analog of
-    data-parallel training with replicated parameters.
+    device differentiates its local L2 tile loss w.r.t. the replicated
+    material pytree, then grads and loss are `psum`ed. This is the
+    renderer analog of data-parallel training with replicated parameters.
     """
     num_pix = camera.width * camera.height
     n_dev = mesh.devices.size
@@ -149,14 +144,14 @@ def render_wavefront_sharded(scene: Scene, camera: Camera, spp, base_key,
                              cfg: IntegratorConfig = IntegratorConfig(),
                              lanes: int = 65536, sample_offset=0):
     """The PRODUCTION engine (wavefront with path regeneration,
-    integrator/wavefront.py) sharded over the mesh: each chip owns a
+    integrator/wavefront.py) sharded over the mesh: each device owns a
     contiguous pixel slice and a private lane pool, regenerating paths
     from its own slice of the pixel*sample pool. RNG streams are keyed by
-    GLOBAL path id, so the N-chip image equals the 1-chip image up to
+    GLOBAL path id, so the N-device image equals the 1-device image up to
     film float-sum reordering. No communication except the rays-count
     psum. spp/sample_offset may be traced (one program, chunked launches).
 
-    Returns ((H, W, 3) image, total rays traced across chips).
+    Returns ((H, W, 3) image, total rays traced across devices).
     """
     from pathtrace_tpu.integrator.wavefront import _run_wavefront
 
@@ -181,70 +176,6 @@ def render_wavefront_sharded(scene: Scene, camera: Camera, spp, base_key,
     return film.reshape(camera.height, camera.width, 3), rays[0]
 
 
-def render_fused_sharded(scene: Scene, camera: Camera, spp, base_key,
-                         mesh: Mesh,
-                         cfg: IntegratorConfig = IntegratorConfig(),
-                         lanes: int = 65536, sample_offset=0,
-                         block_r: int = 2048, interpret: bool = False,
-                         g_inner: int = 8, pack=None):
-    """The FUSED Pallas bounce engine sharded over the mesh: each chip
-    owns a contiguous pixel slice and a private lane pool; RNG streams
-    and camera rays are keyed by GLOBAL path id inside the kernel
-    (bounce_kernel to_global), so the N-chip render is path-for-path
-    identical to the 1-chip render. No communication except the rays
-    psum. Returns ((H, W, 3) image, total rays).
-
-    Host-side wrapper (the scene pack is built with numpy); the sharded
-    program itself is jitted in _render_fused_sharded_jit.
-    """
-    from pathtrace_tpu.ops.pallas.bounce_kernel import (_cam16,
-                                                        build_fused_pack)
-
-    if pack is None:
-        pack = build_fused_pack(scene)
-    cam16 = _cam16(camera)
-    return _render_fused_sharded_jit(
-        pack, cam16, jnp.asarray(spp, jnp.int32),
-        jnp.asarray(sample_offset, jnp.int32), base_key,
-        camera.width, camera.height, cfg=cfg, mesh=mesh, lanes=lanes,
-        block_r=block_r, interpret=interpret, g_inner=g_inner)
-
-
-@partial(jax.jit, static_argnames=("width", "height", "cfg", "mesh",
-                                   "lanes", "block_r", "interpret",
-                                   "g_inner"))
-def _render_fused_sharded_jit(pack, cam16, spp, sample_offset, base_key,
-                              width, height, *, cfg, mesh, lanes, block_r,
-                              interpret, g_inner):
-    from pathtrace_tpu.ops.pallas.bounce_kernel import _run_fused
-
-    num_pix = width * height
-    n_dev = mesh.devices.size
-    assert num_pix % n_dev == 0, (num_pix, n_dev)
-    assert lanes % n_dev == 0, (lanes, n_dev)
-    np_local = num_pix // n_dev
-    lanes_local = lanes // n_dev
-    assert (lanes_local % np_local == 0 or np_local % lanes_local == 0), \
-        (lanes_local, np_local)
-    k_pix = max(1, np_local // lanes_local)
-
-    def shard_body(pk, cam_row):
-        i = jax.lax.axis_index(RAY_AXIS)
-        film, nrays = _run_fused(
-            pk, cam_row, base_key, spp, sample_offset, cfg=cfg,
-            lanes=lanes_local, k_pix=k_pix, width=width,
-            height=height, block_r=min(block_r, lanes_local),
-            interpret=interpret, g_inner=g_inner,
-            num_pix_local=np_local, num_pix_total=num_pix,
-            pix_offset=i * np_local)
-        return film, jax.lax.psum(nrays[None], RAY_AXIS)
-
-    film, rays = jax.shard_map(
-        shard_body, mesh=mesh, in_specs=(P(), P()),
-        out_specs=(P(RAY_AXIS), P()), check_vma=False)(pack, cam16)
-    return film.reshape(height, width, 3), rays[0]
-
-
 @partial(jax.jit, static_argnames=("spp", "cfg", "mesh"))
 def train_step_replay_sharded(scene: Scene, camera: Camera, target, spp: int,
                               base_key, mesh: Mesh,
@@ -253,7 +184,7 @@ def train_step_replay_sharded(scene: Scene, camera: Camera, target, spp: int,
     loss differentiated via the compact path-record replay (diff/replay),
     sharded over pixel slices with psum'd loss and material grads.
 
-    Per chip: (1) recorded forward over its pixel slice -> image tile,
+    Per device: (1) recorded forward over its pixel slice -> image tile,
     (2) L2 cotangent 2*(img - target), (3) record/replay VJP per sample
     (O(R) residuals, zero intersection searches in the backward graph).
     Returns (loss, (tri_mat_grads, sphere_mat_grads), full image).
@@ -308,16 +239,17 @@ def train_step_wavetape_sharded(scene: Scene, camera: Camera, target,
     (diff/wavetape): L2 image loss, pixel-slice sharding, psum'd loss and
     material grads.
 
-    Per chip: (1) ONE wavefront recording sweep over its pixel slice's
+    Per device: (1) ONE wavefront recording sweep over its pixel slice's
     whole path pool (records + recorded-primal film in the same pass),
-    (2) L2 cotangent 2*(film - target) from the recorded primal
-    (== replay primal to XLA fusion reassociation), (3) length-bucketed
+    (2) L2 cotangent 2*(film - target)/spp from the recorded primal
+    (== replay primal to XLA fusion reassociation; the 1/spp is the
+    per-sample share wavetape_grads_core expects), (3) length-bucketed
     chunked replay VJPs. RNG/camera rays keyed by GLOBAL path ids, so
-    the N-chip step is path-for-path identical to 1-chip.
+    the N-device step is path-for-path identical to 1-device.
     Returns (loss, (tri_mat_grads, sphere_mat_grads), full image).
     Not jitted here (meshes don't hash into a stable jit key across
     sizes); wrap the call in jax.jit with mesh/spp/cfg closed over for
-    repeated stepping, as tools/gradcheck_tpu.py does.
+    repeated stepping, as chip_smoke.py does.
     """
     from pathtrace_tpu.diff.wavetape import wavetape_grads_core
 
@@ -336,7 +268,8 @@ def train_step_wavetape_sharded(scene: Scene, camera: Camera, target,
         g_tri, g_sph, film, _ = wavetape_grads_core(
             sc, camera, spp, base_key, cfg, None, lanes, chunk,
             pix_offset=pix0, num_pix_local=np_local,
-            num_pix_total=num_pix, ct_fn=lambda f0: 2.0 * (f0 - tgt))
+            num_pix_total=num_pix,
+            ct_fn=lambda f0: 2.0 * (f0 - tgt) / spp)
         loss = jax.lax.psum(jnp.sum((film - tgt) ** 2), RAY_AXIS)
         grads = jax.lax.psum((g_tri, g_sph), RAY_AXIS)
         return loss, grads, film

@@ -1,8 +1,8 @@
 """SoA 3-vector math on (..., 3) jnp arrays.
 
-TPU-native replacement for the reference's scalar device vec3 class
-(reference: CudaVector.cuh). Everything operates on batched arrays so the
-VPU sees dense (8,128)-tileable work; no classes, no scalar loops.
+Batched replacement for the reference's scalar device vec3 class
+(reference: CudaVector.cuh). Everything operates on batched arrays; no
+classes, no scalar loops.
 
 All ops are autodiff-safe on masked/degenerate lanes (zero vectors,
 grazing angles): divisions and sqrts are clamped away from 0 so neither
@@ -120,11 +120,9 @@ def gather_rows(table: jnp.ndarray, idx: jnp.ndarray,
                 onehot_threshold: int = 512) -> jnp.ndarray:
     """table[idx] for (N, ...) tables and (R,) int indices.
 
-    For small tables this uses an exact one-hot matmul (0/1 weights), which
-    maps to the MXU instead of XLA's serial per-row gather lowering on TPU
-    (profiled at ~45% of integrator device time); the one-hot is CSE'd
-    across multiple gathers sharing the same indices. Larger tables fall
-    back to a plain take. Integer tables round-trip through f32 (exact for
+    For small tables this uses an exact one-hot matmul (0/1 weights); the
+    one-hot is CSE'd across multiple gathers sharing the same indices.
+    Larger tables use a plain take. Integer tables round-trip through f32 (exact for
     values < 2^24).
     """
     import jax
@@ -135,10 +133,9 @@ def gather_rows(table: jnp.ndarray, idx: jnp.ndarray,
     integer = jnp.issubdtype(flat.dtype, jnp.integer)
     work = flat.astype(jnp.float32) if integer else flat
     onehot = jax.nn.one_hot(idx, n, dtype=jnp.float32)
-    # Precision.HIGHEST: TPU matmuls default to bf16 inputs, which would
-    # QUANTIZE the gathered values (material params, light vertices, int
-    # indices round-tripped through f32). With 0/1 weights the bf16x3
-    # decomposition is exact, so HIGHEST restores table[idx] semantics.
+    # Precision.HIGHEST: IEEE f32 products. The default would run TF32 on
+    # the GPU and QUANTIZE the gathered values (material params, light
+    # vertices, int indices round-tripped through f32).
     out = jnp.dot(onehot, work, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
     if integer:

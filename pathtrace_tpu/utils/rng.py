@@ -32,12 +32,11 @@ import numpy as np
 NUM_COLS = 8
 
 # ---------------------------------------------------------------------------
-# Philox4x32-10: counter-based, fully vectorized (dense uint32 VPU ops, no
+# Philox4x32-10: counter-based, fully vectorized (dense uint32 ops, no
 # per-lane key derivation). Counter = (ray_id, iteration, draw_block, const);
 # key = (seed_lo, seed_hi). ~10 rounds of 32x32->64 mul/xor per 4 outputs.
-# This replaces jax.random's per-lane threefry fold_in chain, which cost
-# ~3.4ms per bounce for 16k lanes on TPU (two vmapped hashes per lane);
-# philox here fuses into the surrounding kernel.
+# This replaces jax.random's per-lane threefry fold_in chain (two vmapped
+# hashes per lane); philox here fuses into the surrounding kernel.
 # ---------------------------------------------------------------------------
 
 _PHILOX_M0 = np.uint32(0xD2511F53)

@@ -80,16 +80,22 @@ def test_glass_golden_via_wavefront():
     assert abs(img.mean() - ref.mean()) / ref.mean() < 5e-3
 
 
-def test_tpu_cpu_agreement_artifact():
-    """The committed TPU-vs-CPU agreement artifact (regenerate on TPU via
-    tools/tpu_cpu_agreement.py) must pass: all three engines' TPU renders
-    match the CPU goldens statistically."""
-    import json
-    path = os.path.join(os.path.dirname(__file__), "..", "docs",
-                        "tpu_cpu_agreement.json")
-    if not os.path.exists(path):
-        pytest.skip("artifact not yet generated on TPU")
-    with open(path) as f:
-        report = json.load(f)
-    assert report["pass"] is True
-    assert len(report["results"]) >= 4
+
+@pytest.mark.parametrize("engine", ["megakernel", "wavefront"])
+def test_glass_golden_second_seed(engine):
+    """A second glass seed, the GPU smoke run's witness that its glass
+    bar is set by chaos across seeds, not by one lucky seed. The
+    wavefront read 99.5% pixel agreement at seed 8 on the CPU."""
+    from pathtrace_tpu.integrator.wavefront import render_wavefront
+
+    ref = np.load(os.path.join(GOLDEN, "glass_24x24_8spp_seed8.npy"))
+    cam = procedural.default_camera(24, 24)
+    if engine == "megakernel":
+        img = render(procedural.glass_scene(), cam, 8, rng.make_key(8))
+    else:
+        img = render_wavefront(procedural.glass_scene().with_mt(), cam, 8,
+                               rng.make_key(8), lanes=576)
+    close = np.isclose(np.asarray(img), ref, rtol=5e-3, atol=5e-3)
+    min_agree = 0.999 if engine == "megakernel" else 0.98
+    assert close.mean() > min_agree, f"pixel agreement {close.mean()}"
+    assert abs(np.mean(img) - ref.mean()) / ref.mean() < 5e-3

@@ -228,21 +228,3 @@ def test_gradcheck_artifact_pinned():
     assert report["max_rel_err"] <= 1e-3
     assert len(report["checks"]) >= 8
 
-
-def test_gradcheck_tpu_artifact_pinned():
-    """The committed TPU-compiled gradient artifact (round 5) must hold:
-    replay-vs-scan-AD, forward-vs-reverse, the blob82k mesh-scene
-    wavetape-vs-scan-AD pin, and the production wavetape training-step
-    throughput (regenerate with tools/gradcheck_tpu.py on the TPU)."""
-    import json
-    import os
-    path = os.path.join(os.path.dirname(__file__), "..",
-                        "gradcheck_tpu_r05.json")
-    with open(path) as f:
-        report = json.load(f)
-    assert report["pass"] is True
-    assert report["replay_vs_scan_ad"]["pass"] is True
-    assert report["forward_vs_reverse"]["pass"] is True
-    assert report["mesh_grads"]["pass"] is True
-    assert report["mesh_grads"]["primal_max_abs_diff"] < 1e-3
-    assert report["train_step_wavetape"]["paths_per_sec"] > 2e6

@@ -102,6 +102,39 @@ def test_aces_and_png(tmp_path):
     assert os.path.getsize(path) > 100
 
 
+def _decode_png(data: bytes) -> np.ndarray:
+    """Minimal decoder for the writer's own output (8-bit RGB, filter 0)."""
+    import struct
+    import zlib
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body), tag
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (depth, ctype) == (8, 2) and b"IEND" in chunks
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def test_png_writer_roundtrip(tmp_path):
+    """write_png's bytes decode to exactly the tonemapped uint8 image."""
+    img = np.random.default_rng(2).random((5, 7, 3)).astype(np.float32) * 3
+    path = tmp_path / "t.png"
+    image.write_png(str(path), img)
+    got = _decode_png(path.read_bytes())
+    want = image.to_uint8(np.asarray(image.aces_film(img)))
+    np.testing.assert_array_equal(got, want)
+    raw = np.arange(2 * 3 * 3, dtype=np.uint8).reshape(2, 3, 3)
+    np.testing.assert_array_equal(_decode_png(image.encode_png(raw)), raw)
+
+
 def test_checkpoint_roundtrip(tmp_path):
     from pathtrace_tpu.models.scene import Material
 
@@ -127,5 +160,4 @@ def test_presets_build_with_production_accel():
     small = build_preset_scene(PRESETS["diffuse256"], to_device=False)
     assert small.mt is not None
     mesh = build_preset_scene(PRESETS["mesh512"], to_device=False)
-    assert mesh.pair_pack is not None
     assert mesh.clusters.dup_map is not None

@@ -45,25 +45,26 @@ def test_kd_matches_brute(scene):
     org, d = _rays(512, 0)
     a = raycast_brute(scene, org, d)
     r = org.shape[0]
-    hit, t, gid, u, v, overflow = binned.raycast_binned_pallas(
-        scene, org, d, 0.0, 999999.0, k_max=20, interpret=True)
+    hit, t, gid, overflow = binned.search_pairs_v3(
+        scene, org, d, jnp.zeros((r,), jnp.float32),
+        jnp.full((r,), 999999.0, jnp.float32))
     assert np.asarray(overflow).mean() == 0.0
     agree = np.asarray(a.hit) == np.asarray(hit)
     assert agree.mean() > 0.995, agree.mean()
     both = np.asarray(a.hit) & np.asarray(hit) & agree
+    # t here is the reduce key's quantized t (~1e-3 relative)
     np.testing.assert_allclose(np.asarray(a.t)[both], np.asarray(t)[both],
-                               rtol=1e-4, atol=1e-3)
+                               rtol=2e-3, atol=1e-3)
     same = np.asarray(a.prim_id)[both] == np.asarray(gid)[both]
     assert same.mean() > 0.995
+    h = binned.raycast_binned_v3(scene, org, d)
+    np.testing.assert_allclose(np.asarray(a.t)[both], np.asarray(h.t)[both],
+                               rtol=1e-4, atol=1e-3)
 
 
 def test_kd_hitrecord_and_surface_rays(scene):
     """Rays STARTING on the surface (the bounce/shadow regime that blew
     up the BVH-subtree clusters' membership) stay exact and low-fanout."""
-    from unittest import mock
-    from pathtrace_tpu.ops.pallas import pair_kernel
-    import jax
-
     g = np.random.default_rng(3)
     v0 = np.asarray(scene.tris.v0)
     idx = g.integers(0, v0.shape[0], 256)
@@ -77,14 +78,6 @@ def test_kd_hitrecord_and_surface_rays(scene):
     assert stats["max"] <= 20, stats
 
     a = raycast_brute(scene, org, d)
-    orig = pair_kernel.pair_blocks_search
-
-    def patched(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    with mock.patch.object(pair_kernel, "pair_blocks_search", patched), \
-            jax.disable_jit():
-        h = binned.raycast_binned_v2(scene, org, d)
+    h = binned.raycast_binned_v3(scene, org, d)
     agree = np.asarray(a.hit) == np.asarray(h.hit)
     assert agree.mean() > 0.99, agree.mean()

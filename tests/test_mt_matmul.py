@@ -1,4 +1,4 @@
-"""MXU-matmul Möller-Trumbore vs direct brute force: hit-for-hit
+"""Matmul Möller-Trumbore vs direct brute force: hit-for-hit
 agreement (the coefficient fit is exact up to float rounding)."""
 
 import numpy as np
